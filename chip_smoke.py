@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``hybridq_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py --out run.jsonl # also append the JSON lines
+
+Phases, each printing one JSON line (a failing phase exits non-zero):
+
+  build      compile ``hybridq_tpu_torch/csrc/*.cu`` from the checkout;
+  kernels    at n = 28, hold every routing class of ``fused_apply`` and
+             ``swap_apply``, and both kernels at gate sizes k = 1..8,
+             against the plain PyTorch version (max|d|/rms <= 1e-5) and
+             time kernel, plain version, bound and a ``torch.matmul`` of
+             the same arithmetic; also time the row gather of a park and
+             the host time of one step.  These are the costs that
+             ``fused_evolver._step_cost`` prices a step with;
+  parity     ``simulate(get_rqc(24, ...), optimize='evolution')`` on the
+             card against a per-gate numpy oracle on the host, at 20 and
+             40 random gates after an H layer: max|d| over the largest
+             amplitude <= 3e-6 at both depths, max|d|/rms <= 1e-5 at 20
+             (the roadmap's contract is 1e-6); both kernels must launch;
+  main_path  n = 30 (8 GiB of state), the workload of ``bench.py``: 24
+             random 4-qubit unitaries avoiding bits 0-2.  First through
+             ``simulate(..., optimize='evolution')``, with launch counts
+             zeroed just before and read just after; then bench-style
+             timed passes through ``FusedEvolver`` with amplitudes read
+             through the slot map (no flush, no gather), paired by
+             ``pair_fused_gates`` and unpaired; the paired pass may take
+             at most 1.1x the unpaired one.  Each kernel is then replayed
+             at the most frequent gate size the main path gave it and
+             held against its plain version.
+
+Then the ``{"kernels": [...]}`` summary, the card's ``name, power.limit``
+and, as the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the package beside this script, it exits non-zero and
+prints no result.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+REPS = 3                   # timed repetitions of each kernel and pass
+N_KERNELS = 28
+N_STEP = 16                # n at which a step's host time is measured
+N_PARITY = 24
+PARITY_GATES = (20, 40)
+N_MAIN = 30
+MAIN_GATES = 24
+TOL = 1e-5                 # max|d|/rms, kernel against plain (f32 sums)
+# max|d| / max|amp| of simulate against the complex128 oracle: f32
+# evolution gives 6e-7 to 8e-7 at these depths on the card and on the CPU.
+PARITY_TOL = 3e-6
+PAIRED_SLACK = 1.1         # paired pass time over unpaired, at most
+NORM_TOL = 1e-4
+# Published peaks (NVIDIA data sheets): bytes/s, fp32 FLOP/s outside the
+# tensor cores.
+_PEAKS = {'H100 PCIe': (2.0e12, 51.2e12), 'H200': (4.8e12, 67e12),
+          'H100': (3.35e12, 67e12)}
+KERNEL_INFO = {
+    'fused_apply': 'hybridq_tpu/simulation/pallas_fused.py:175',
+    'swap_apply': 'hybridq_tpu/simulation/pallas_fused.py:446',
+}
+SOURCE = 'hybridq_tpu_torch/csrc/fused_apply.cu'
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def emit(obj, out):
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if out is not None:
+        out.write(line + '\n')
+        out.flush()
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def card_power():
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def peaks(name):
+    for key, val in _PEAKS.items():
+        if all(w in name for w in key.split()):
+            return val
+    return _PEAKS['H100']
+
+
+def bound(n, k, name):
+    """Least time (ms) for one gate pass: the whole state read and
+    written once, or 8 * 2^(n+k) fp32 flops."""
+    bw, flops = peaks(name)
+    t_bytes = 2 * 2 ** (n + 1) * 4 / bw
+    t_ops = 8 * 2 ** (n + k) / flops
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def time_ms(fn, reps):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def rand_unitary(k, rng):
+    m = rng.standard_normal((2 ** k, 2 ** k)) + \
+        1j * rng.standard_normal((2 ** k, 2 ** k))
+    return np.linalg.qr(m)[0].astype(np.complex64)
+
+
+def rand_state(n, gen):
+    import torch
+
+    st = torch.randn(2 ** (n + 1), generator=gen, device='cuda')
+    st /= torch.linalg.vector_norm(st)
+    return st
+
+
+def compare_kernel(n, kind, U, bits, victims, gen, name, reps,
+                   plain_reps=2):
+    """Kernel against plain version on one random state; returns the
+    measured numbers."""
+    import torch
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+
+    st = rand_state(n, gen)
+    a, b = st.clone(), st.clone()
+    Ud = torch.as_tensor(U, device='cuda')
+    if kind == 'fused':
+        def kern(s=a):
+            fk.apply_fused(s, Ud, bits)
+
+        def plain(s=b):
+            fk.apply_fused_plain(s, Ud, bits)
+    else:
+        def kern(s=a):
+            fk.apply_swap(s, Ud, bits, victims)
+
+        def plain(s=b):
+            fk.apply_swap_plain(s, Ud, bits, victims)
+    kern()
+    plain()
+    torch.cuda.synchronize()
+    d = (a - b).abs_().max().item()
+    rms = 2.0 ** (-n / 2)      # of the amplitudes of a unit-norm state
+    del st
+    ms = time_ms(kern, reps)
+    plain_ms = time_ms(plain, plain_reps)
+    del kern, plain, a, b
+    torch.cuda.empty_cache()
+    k = len(bits)
+    M = 2 ** k
+    psi = torch.randn(M, 2 ** (n - k), dtype=torch.complex64,
+                      device='cuda', generator=gen)
+    lib_ms = time_ms(lambda: torch.matmul(Ud, psi), reps)
+    del psi
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(n, k, name)
+    return {'max_abs_err': d, 'rel_err': d / rms, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+            'library_ms': lib_ms}
+
+
+def swap_bits(n, k, kl):
+    """Positions of a k-bit swap gate with kl lane bits (6, 5): as many
+    top high bits as the routing allows (k_hi + kl <= 4), the rest on
+    sublane bits 7.., victims just below the high bits.  For k <= 4 this
+    is the JAX engine's calibration choice for class (k, kl)."""
+    k_hi = min(k, 4) - kl
+    bits = list(range(6, 6 - kl, -1)) + \
+        list(range(n - 1, n - 1 - k_hi, -1)) + list(range(7, 7 + k - kl -
+                                                          k_hi))
+    victims = list(range(n - 1 - k_hi, n - 1 - k_hi - kl, -1))
+    return bits, victims
+
+
+def step_host_ms():
+    """Host time (ms) of one memoized ``apply_gate`` step at n = N_STEP,
+    where the kernel itself takes microseconds."""
+    import torch
+    from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
+
+    ev = FusedEvolver(N_STEP, device='cuda')
+    st = ev.prepare_state('0' * N_STEP)
+    U = rand_unitary(1, np.random.default_rng(SEED))
+    for _ in range(10):
+        st = ev.apply_gate(st, U, (0,), gate_key='step')
+    torch.cuda.synchronize()
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        st = ev.apply_gate(st, U, (0,), gate_key='step')
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+# -- phases ------------------------------------------------------------
+
+def phase_build(out):
+    import torch
+    from hybridq_tpu_torch.simulation import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    dt = time.perf_counter() - t0
+    check('fused_apply' in libs, "fused_apply was not built")
+    nvcc = subprocess.run([_build.nvcc_path(), '--version'],
+                          capture_output=True, text=True).stdout
+    ptxas = [ln.strip() for log in _build.LOGS.values()
+             for ln in log.splitlines() if 'Used' in ln or 'spill' in ln]
+    emit({'phase': 'build', 'ok': True, 'seconds': dt,
+          'torch': torch.__version__, 'torch_cuda': torch.version.cuda,
+          'nvcc': nvcc.strip().splitlines()[-1],
+          'card': card_power(), 'ptxas': ptxas}, out)
+
+
+def phase_kernels(out, name):
+    import torch
+    from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
+
+    n = N_KERNELS
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    # fused classes k_hi = 0..4 on the top high bits (k_hi = 0: bit 8),
+    # then gate sizes k = 1..8 on high and sublane bits mixed; swap
+    # classes (k, kl) for k <= 4 and sizes up to 8 with sublane bits.
+    cases = [('fused', [k], list(range(n - 1, n - 1 - k, -1)) or [8], [])
+             for k in range(5)]
+    cases += [('fused_k', [], [n - 1 - 2 * i for i in range(k // 2)] +
+               [7 + i for i in range((k + 1) // 2)], [])
+              for k in range(1, 9)]
+    cases += [('swap', [min(k, 4), kl], *swap_bits(n, k, kl))
+              for kl in (1, 2) for k in range(kl, 9)]
+    rows = []
+    for kind, cls, bits, victims in cases:
+        k = len(bits)
+        r = compare_kernel(n, 'swap' if victims else 'fused',
+                           rand_unitary(k, rng), bits, victims, gen, name,
+                           REPS)
+        r.update({'kind': kind, 'cls': cls, 'k': k, 'bits': bits,
+                  'victims': victims})
+        rows.append(r)
+        emit({'phase': 'kernels', 'n': n, **r}, out)
+        check(r['rel_err'] <= TOL, f"{kind}{cls} k={k}: max|d|/rms "
+              f"{r['rel_err']:.3g} > {TOL}")
+    # park by row gather (inplace=False): the cost of a ('park',) step
+    ev = FusedEvolver(n, device='cuda', inplace=False)
+    st = ev.prepare_state('0' * n)
+    perm = list(range(n))
+    perm[n - 1], perm[8] = 8, n - 1
+
+    def gather_rows():
+        nonlocal st
+        ev.phys, ev.logi = list(range(n)), list(range(n))
+        st = ev._row_permute(st, perm)
+    park_ms = time_ms(gather_rows, REPS)
+    del st
+    torch.cuda.empty_cache()
+    emit({'phase': 'kernels', 'ok': True, 'n': n, 'card': card_power(),
+          'step_costs': {
+              'fused': {r['k']: round(r['ms'], 3) for r in rows
+                        if r['kind'] == 'fused_k'},
+              'swap': {f"{r['k']},{r['cls'][1]}": round(r['ms'], 3)
+                       for r in rows if r['kind'] == 'swap'},
+              'park': round(park_ms, 3),
+              'step_ms': round(step_host_ms(), 4)}}, out)
+
+
+def numpy_oracle(circuit, qubits):
+    from hybridq_tpu_torch.circuit import utils
+
+    n = len(qubits)
+    index = {q: i for i, q in enumerate(qubits)}
+    psi = np.zeros((2,) * n, dtype=np.complex128)
+    psi[(0,) * n] = 1
+    for g in utils.flatten(circuit):
+        axes = [index[q] for q in g.qubits]
+        k = len(axes)
+        U = np.asarray(g.matrix(), dtype=np.complex128).reshape(
+            (2,) * (2 * k))
+        psi = np.tensordot(U, psi, axes=(list(range(k, 2 * k)), axes))
+        psi = np.moveaxis(psi, list(range(k)), axes)
+    return psi
+
+
+def phase_parity(out):
+    import torch
+    from hybridq_tpu_torch import Circuit, Gate
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+    from hybridq_tpu_torch.simulation import simulate
+
+    n = N_PARITY
+    for depth in PARITY_GATES:
+        np.random.seed(SEED)
+        c = Circuit([Gate('H', qubits=[q]) for q in range(n)]) + \
+            get_rqc(n, depth, indexes=list(range(n)))
+        fk.reset_counts()
+        t0 = time.perf_counter()
+        psi = simulate(c, initial_state='0', optimize='evolution')
+        dt = time.perf_counter() - t0
+        launches = fk.counts()
+        want = numpy_oracle(c, sorted(c.all_qubits))
+        d = np.abs(psi.astype(np.complex128) - want).max()
+        rms = np.sqrt(np.mean(np.abs(want) ** 2))
+        amax = np.abs(want).max()
+        emit({'phase': 'parity', 'n': n, 'gates': len(c),
+              'max_abs_err': float(d), 'rel_err': float(d / rms),
+              'err_over_max_amp': float(d / amax),
+              'max_amp_over_rms': float(amax / rms),
+              'contract': 1e-6, 'within_contract': bool(d / rms <= 1e-6),
+              'seconds': dt, 'launches': launches}, out)
+        check(launches['fused_apply'] > 0 and launches['swap_apply'] > 0,
+              f"parity: a kernel was not launched: {launches}")
+        check(launches['apply_fused_plain'] == 0 and
+              launches['apply_swap_plain'] == 0,
+              f"parity: a plain version ran: {launches}")
+        check(d / amax <= PARITY_TOL, f"parity ({depth} gates): max|d| / "
+              f"max|amp| {d / amax:.3g} > {PARITY_TOL}")
+        if depth == PARITY_GATES[0]:
+            check(d / rms <= TOL, f"parity ({depth} gates): max|d|/rms "
+                  f"{d / rms:.3g} > {TOL}")
+        del psi
+        torch.cuda.empty_cache()
+
+
+def bench_workload(n, k, n_gates, rng, min_bit=3):
+    """``bench.py``'s workload: random k-qubit unitaries on qubits whose
+    flat bits avoid 0..min_bit-1."""
+    gates = []
+    for _ in range(n_gates):
+        qs = tuple(int(x) for x in rng.choice(n - min_bit, k,
+                                              replace=False))
+        gates.append((rand_unitary(k, rng), qs))
+    return gates
+
+
+def phase_main_path(out, name):
+    import torch
+    from hybridq_tpu_torch import Gate
+    from hybridq_tpu_torch.convert import circuit_from_matrices
+    from hybridq_tpu_torch.simulation import fused_evolver as fe
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+    from hybridq_tpu_torch.simulation import simulate
+
+    n = N_MAIN
+    rng = np.random.default_rng(SEED)
+    gates = bench_workload(n, 4, MAIN_GATES, rng)
+    idx = np.random.default_rng(SEED + 1).choice(2 ** n, 16, replace=False)
+
+    # (a) the user's entry point; the gates avoid the last 3 qubits, so
+    # identities keep all n of them in the register.
+    circuit = circuit_from_matrices(gates) + \
+        [Gate('I', qubits=[q]) for q in range(n)]
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    t0 = time.perf_counter()
+    psi = simulate(circuit, initial_state='0' * n, optimize='evolution',
+                   remove_id_gates=False, return_numpy_array=False)
+    torch.cuda.synchronize()
+    t_sim = time.perf_counter() - t0
+    launches = fk.counts()
+    peak_sim = torch.cuda.max_memory_allocated()
+    check(tuple(psi.shape) == (2,) * n and psi.dtype == torch.complex64,
+          f"main_path: simulate returned {psi.dtype} {tuple(psi.shape)}")
+    flat = psi.reshape(-1)
+    norm = torch.linalg.vector_norm(flat).item()
+    amps_sim = {int(i): complex(flat[int(i)].item()) for i in idx}
+    del psi, flat
+    torch.cuda.empty_cache()
+    check(abs(norm - 1) <= NORM_TOL, f"main_path: simulate norm {norm}")
+    check(launches['fused_apply'] > 0 and launches['swap_apply'] > 0,
+          f"main_path: a kernel was not launched: {launches}")
+    check(launches['apply_fused_plain'] == 0 and
+          launches['apply_swap_plain'] == 0,
+          f"main_path: a plain version ran: {launches}")
+
+    # (b) bench-style passes through FusedEvolver, never flushing
+    ev = fe.FusedEvolver(n, device='cuda')
+    blocks = fe.pair_fused_gates(gates, n, fe.MapSim.of(ev))
+
+    def no_flush(*_):
+        raise PhaseError("main_path: flush/gather called at n=30")
+    ev.flush = no_flush
+    calls = []
+
+    def recorder(kind, fn):
+        def wrapped(state, U, *rest):
+            calls.append((kind, U, [list(r) for r in rest]))
+            return fn(state, U, *rest)
+        return wrapped
+    orig = fe.apply_fused, fe.apply_swap
+    fe.apply_fused = recorder('fused', fk.apply_fused)
+    fe.apply_swap = recorder('swap', fk.apply_swap)
+
+    def run_pass(state, items=blocks, tag='blk'):
+        for i, (U, qs) in enumerate(items):
+            state = ev.apply_gate(state, np.asarray(U), tuple(qs),
+                                  gate_key=(tag, i))
+        return state
+
+    def timed_passes(state, items, tag):
+        """Warm passes until the slot map repeats at a pass boundary
+        (every operand is then uploaded), then timed passes."""
+        seen = {tuple(ev.phys)}
+        warm = 0
+        for warm in range(1, 13):
+            state = run_pass(state, items, tag)
+            if tuple(ev.phys) in seen:
+                break
+            seen.add(tuple(ev.phys))
+        torch.cuda.synchronize()
+        fk.reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            state = run_pass(state, items, tag)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / REPS
+        return state, dt, warm, {k: v / REPS
+                                 for k, v in fk.counts().items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state = ev.prepare_state('0' * n)
+        state = run_pass(state)
+    finally:
+        fe.apply_fused, fe.apply_swap = orig
+    d_amp = max(abs(ev.amplitude(state, int(i)) - amps_sim[int(i)])
+                for i in idx)
+    check(d_amp <= 1e-6, f"main_path: evolver and simulate disagree "
+          f"({d_amp:.3g})")
+    state, dt, warm, pass_launches = timed_passes(state, blocks, 'blk')
+    # the same gates unpaired, one kernel class per 4-qubit gate
+    state, dt_single, _, _ = timed_passes(state, gates, 'gate')
+    peak_ev = torch.cuda.max_memory_allocated()
+    norm_ev = torch.linalg.vector_norm(state).item()
+    del state
+    torch.cuda.empty_cache()
+    check(abs(norm_ev - 1) <= NORM_TOL, f"main_path: norm {norm_ev}")
+    emit({'phase': 'main_path', 'n': n, 'gates': len(gates),
+          'blocks': len(blocks),
+          'block_sizes': sorted(len(q) for _, q in blocks),
+          'simulate_s': t_sim, 'simulate_norm': norm,
+          'simulate_peak_gib': peak_sim / 2 ** 30,
+          'launches': launches, 'warm_passes': warm,
+          'pass_s': dt, 'gates_per_s': len(gates) / dt,
+          'launches_per_pass': pass_launches,
+          'unpaired_pass_s': dt_single,
+          'unpaired_gates_per_s': len(gates) / dt_single,
+          'evolver_norm': norm_ev, 'evolver_peak_gib': peak_ev / 2 ** 30,
+          'amp_diff_vs_simulate': d_amp, 'card': card_power()}, out)
+    check(dt <= PAIRED_SLACK * dt_single,
+          f"main_path: the paired pass ({dt:.4f} s) is slower than the "
+          f"unpaired one ({dt_single:.4f} s)")
+
+    # replay each kernel at the main path's most frequent gate size
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    summary = []
+    for kind, kname in (('fused', 'fused_apply'), ('swap', 'swap_apply')):
+        mine = [c for c in calls if c[0] == kind]
+        sizes = [len(c[2][0]) for c in mine]
+        k = max(set(sizes), key=sizes.count)
+        _, U, rest = next(c for c in mine if len(c[2][0]) == k)
+        bits, victims = rest[0], (rest[1] if kind == 'swap' else [])
+        r = compare_kernel(n, kind, U.cpu().numpy(), bits, victims, gen,
+                           name, REPS)
+        emit({'phase': 'main_path_kernel', 'name': kname, 'n': n,
+              'k': k, 'bits': bits, 'victims': victims, **r}, out)
+        check(r['rel_err'] <= TOL, f"{kname} at n={n}: max|d|/rms "
+              f"{r['rel_err']:.3g} > {TOL}")
+        summary.append({'name': kname, 'route': 'cuda', 'source': SOURCE,
+                        'replaces': KERNEL_INFO[kname],
+                        'launches': launches[kname],
+                        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                        'plain_ms': r['plain_ms'],
+                        'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms']})
+    return summary
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--out', default=None,
+                    help="also append the JSON lines to this file")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, 'hybridq_tpu_torch', 'csrc')):
+        print("chip_smoke: hybridq_tpu_torch/ not found beside this "
+              "script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+
+    out = open(args.out, 'a') if args.out else None
+    try:
+        phase_build(out)
+        phase_kernels(out, name)
+        phase_parity(out)
+        emit({'kernels': phase_main_path(out, name)}, out)
+        print(card_power(), flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': name,
+            'count': torch.cuda.device_count()}}), flush=True)
+    except PhaseError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    finally:
+        if out is not None:
+            out.close()
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

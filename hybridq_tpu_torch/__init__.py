@@ -1,0 +1,19 @@
+"""hybridq_tpu_torch — the PyTorch/CUDA port of ``hybridq_tpu``.
+
+The gate and circuit IR are copies of the JAX package's; the state-vector
+engine runs on an NVIDIA GPU through hand-written CUDA kernels
+(``hybridq_tpu_torch/csrc``), with plain PyTorch versions of the same
+kernels for tensors on the CPU.  This package imports neither ``jax``
+nor ``hybridq_tpu``.
+
+Engines:
+  * state-vector evolution  — `hybridq_tpu_torch.simulation.simulate`
+"""
+
+__version__ = '0.1.0'
+
+from hybridq_tpu_torch.gate import Gate, Projection, Measure, Control
+from hybridq_tpu_torch.circuit import Circuit
+
+__all__ = ['Gate', 'Projection', 'Measure', 'Control', 'Circuit',
+           '__version__']

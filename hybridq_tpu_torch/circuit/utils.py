@@ -1,0 +1,495 @@
+"""Circuit transformation toolbox.
+
+Host-side, deterministic circuit rewrites mirroring the reference
+``hybridq/circuit/utils.py``:
+
+  * ``compress``      — greedy k-qubit blocking with matrix commutation
+                        (reference ``:467-686``); the key pre-pass for the
+                        evolution (k=4) and tensor-network (k=2) engines.
+  * ``simplify``      — reverse insert-from-left with inverse cancellation
+                        (reference ``:825-865``).
+  * ``matrix``        — circuit → unitary with recursive compression
+                        (reference ``:688-810``).
+  * ``pop*``          — lightcone pruning against pinned qubits
+                        (reference ``:865-950``).
+  * ``moments``, ``remove_swap``, ``expand_iswap``, ``filter``, ``to_nx``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from hybridq_tpu_torch.circuit.circuit import Circuit
+from hybridq_tpu_torch.gate import BaseGate, Gate, MatrixGate, TupleGate
+from hybridq_tpu_torch.utils import sort, argsort
+
+__all__ = [
+    'flatten', 'isidentity', 'isclose', 'insert_from_left', 'to_nx',
+    'to_matrix_gate', 'compress', 'matrix', 'simplify', 'popright',
+    'popleft', 'pop', 'moments', 'remove_swap', 'expand_iswap', 'filter'
+]
+
+
+def flatten(a) -> Circuit:
+    """Expand any gate providing ``flatten`` (e.g. TupleGate) in place."""
+    return Circuit(
+        g for gs in a for g in (gs.flatten() if gs.provides('flatten') else
+                                (gs,)))
+
+
+def matrix(circuit, order=None, complex_type='complex64',
+           max_compress: int = 4, verbose: bool = False) -> np.ndarray:
+    """Unitary matrix of ``circuit`` in the given qubit order
+    (default ``circuit.all_qubits``)."""
+    circuit = Circuit(circuit)
+    all_qubits = circuit.all_qubits
+    if order is not None:
+        order = list(order)
+        if set(order) ^ set(all_qubits):
+            raise ValueError(
+                "'order' must be a valid permutation of the circuit qubits.")
+
+    if max_compress > 0:
+        blocks = compress(circuit, max_n_qubits=max_compress)
+        circuit = Circuit(
+            to_matrix_gate(c, complex_type=complex_type, max_compress=0)
+            for c in blocks)
+
+    qubits = list(all_qubits)
+    n = len(qubits)
+    U = np.reshape(np.eye(2**n, dtype=complex_type), (2,) * (2 * n))
+
+    for g in circuit:
+        gq = g.qubits
+        k = len(gq)
+        perm = [qubits.index(q) for q in gq]
+        perm += [x for x in range(n) if x not in perm]
+        qubits = [qubits[x] for x in perm]
+        U = np.transpose(U, perm + list(range(n, 2 * n)))
+        U = np.reshape(
+            g.matrix().astype(complex_type) @ np.reshape(
+                U, (2**k, 2**(2 * n - k))), (2,) * (2 * n))
+
+    U = np.reshape(
+        np.transpose(U, argsort(qubits) + list(range(n, 2 * n))),
+        (2**n, 2**n))
+
+    if order and order != all_qubits:
+        idx = [all_qubits.index(q) for q in order]
+        U = np.reshape(
+            np.transpose(np.reshape(U, (2,) * (2 * n)),
+                         idx + [n + i for i in idx]), (2**n, 2**n))
+    return np.ascontiguousarray(U.astype(complex_type))
+
+
+def to_matrix_gate(circuit, complex_type='complex64', **kwargs) -> MatrixGate:
+    """Convert ``circuit`` into a single MatrixGate on its sorted qubits."""
+    circuit = Circuit(circuit)
+    return Gate('MATRIX',
+                qubits=circuit.all_qubits,
+                U=matrix(circuit, complex_type=complex_type, **kwargs))
+
+
+def isidentity(a, atol: float = 1e-8) -> bool:
+    """True if the circuit matrix is close to the identity."""
+    M = matrix(a, complex_type='complex128')
+    return np.allclose(M, np.eye(M.shape[0]), atol=atol)
+
+
+def isclose(a, b, use_matrix_commutation: bool = True,
+            max_n_qubits_matrix: int = 10, atol: float = 1e-8,
+            verbose: bool = False) -> bool:
+    """True if circuits ``a`` and ``b`` implement the same unitary."""
+    s = simplify(Circuit(a) + Circuit(b).inv(),
+                 use_matrix_commutation=use_matrix_commutation,
+                 max_n_qubits_matrix=max_n_qubits_matrix, atol=atol,
+                 verbose=verbose)
+    return not s or all(isidentity([g], atol=atol) for g in s)
+
+
+def insert_from_left(circuit, gate: BaseGate, atol: float = 1e-8, *,
+                     use_matrix_commutation: bool = True,
+                     max_n_qubits_matrix: int = 10, simplify: bool = True,
+                     pop: bool = False, pinned_qubits=None,
+                     inplace: bool = False) -> Circuit:
+    """Insert ``gate`` scanning from the left, cancelling with an inverse or
+    commuting past gates when possible (reference ``:122-208``)."""
+    import copy as _copy
+    if not inplace:
+        circuit = Circuit(g.copy() for g in circuit)
+
+    if not gate.provides('qubits') or gate.qubits is None:
+        circuit.insert(0, _copy.deepcopy(gate))
+        return circuit
+    qubits = set(gate.qubits)
+
+    for p, g in enumerate(circuit):
+        # Cancel with an inverse partner.
+        if simplify:
+            try:
+                if gate.inv().isclose(g, atol=atol):
+                    del circuit[p]
+                    return circuit
+            except Exception:
+                pass
+        # Commute past, or insert here.
+        commute = False
+        try:
+            if g.n_qubits is not None and \
+                    g.n_qubits <= max_n_qubits_matrix and \
+                    g.qubits is not None:
+                commute |= not qubits.intersection(g.qubits)
+                if not commute and use_matrix_commutation:
+                    commute |= gate.commutes_with(g, atol=atol)
+        except Exception:
+            pass
+        if not commute:
+            circuit.insert(p, _copy.deepcopy(gate))
+            return circuit
+
+    # Commutes with everything: append, unless popping outside the lightcone.
+    if not pop or qubits.intersection(pinned_qubits or ()):
+        circuit.append(_copy.deepcopy(gate))
+    return circuit
+
+
+def compress(circuit, max_n_qubits: int = 2, *, exclude_qubits=None,
+             use_matrix_commutation: bool = True,
+             max_n_qubits_matrix: int = 10, skip_compression=None,
+             skip_commutation=None, atol: float = 1e-8,
+             verbose: bool = False) -> list:
+    """Greedily merge gates into blocks of at most ``max_n_qubits`` qubits.
+
+    Deterministic; returns a list of ``Circuit`` blocks.  Matches the
+    reference algorithm (``hybridq/circuit/utils.py:467-686``): a gate is
+    pushed back through existing blocks as long as it commutes with them,
+    and merged into the deepest block whose qubit-union stays within the
+    limit.
+    """
+    if max_n_qubits <= 0:
+        return [Circuit([g]) for g in circuit]
+
+    skip_compression = tuple(skip_compression or ())
+    skip_commutation = tuple(skip_commutation or ())
+    exclude_qubits = set(exclude_qubits or ())
+
+    def _check_skip(gate, x):
+        if isinstance(x, type):
+            return isinstance(gate, x)
+        if isinstance(x, str):
+            return gate.name == x.upper() or gate.provides(x)
+        raise ValueError(f"'{x}' not supported.")
+
+    def _as_matrix_gate(gates):
+        return to_matrix_gate(gates, complex_type='complex128',
+                              max_compress=0)
+
+    circuit = Circuit(circuit)
+    # Each layer: [block_circuit, cached_matrix_gate_or_None, props]
+    layers = []
+
+    for gate in circuit:
+        mgate = None
+        props = dict(compress=True, commute=True)
+        merge_to = len(layers)
+
+        if not gate.provides('qubits') or gate.qubits is None:
+            props['compress'] = props['commute'] = False
+        else:
+            q = set(gate.qubits)
+            try:
+                mgate = _as_matrix_gate([gate]) if (
+                    use_matrix_commutation and
+                    len(q) <= max_n_qubits_matrix) else None
+            except Exception:
+                mgate = None
+
+            if any(_check_skip(gate, t) for t in skip_compression) or \
+                    q & exclude_qubits:
+                props['compress'] = False
+            if any(_check_skip(gate, t) for t in skip_commutation):
+                props['commute'] = False
+
+            for i in reversed(range(len(layers))):
+                block, block_gate, block_props = layers[i]
+                try:
+                    cq = set(block.all_qubits)
+                except Exception:
+                    break
+                if props['compress'] and block_props['compress']:
+                    if len(q | cq) <= max(max_n_qubits, len(cq), len(q)):
+                        merge_to = i
+                if use_matrix_commutation and props['commute'] and \
+                        block_props['commute']:
+                    if not q & cq:
+                        continue
+                    try:
+                        if mgate.commutes_with(block_gate, atol=atol):
+                            continue
+                    except Exception:
+                        pass
+                break
+
+        if merge_to < len(layers):
+            layer = layers[merge_to]
+            layer[0].append(gate)
+            try:
+                if use_matrix_commutation and len(
+                        set(mgate.qubits) |
+                        set(layer[1].qubits)) <= max_n_qubits_matrix:
+                    layer[1] = _as_matrix_gate([layer[1], mgate])
+                else:
+                    layer[1] = None
+            except Exception:
+                layer[1] = None
+            for k in ('compress', 'commute'):
+                layer[2][k] &= props[k]
+        else:
+            layers.append([Circuit([gate]), mgate, props])
+
+    return [c for c, _, _ in layers]
+
+
+def simplify(circuit, atol: float = 1e-8,
+             use_matrix_commutation: bool = True,
+             max_n_qubits_matrix: int = 10, remove_id_gates: bool = True,
+             verbose: bool = False) -> Circuit:
+    """Cancel inverse pairs and drop identities (reference ``:825-865``)."""
+    new_circuit = Circuit()
+    if remove_id_gates:
+        rev = (g for g in reversed(circuit)
+               if g.name != 'I' and
+               (not g.provides('matrix') or g.n_qubits is None or
+                g.n_qubits > max_n_qubits_matrix or
+                not isidentity([g], atol=atol)))
+    else:
+        rev = reversed(circuit)
+    for gate in rev:
+        insert_from_left(new_circuit, gate, atol=atol,
+                         use_matrix_commutation=use_matrix_commutation,
+                         max_n_qubits_matrix=max_n_qubits_matrix,
+                         simplify=True, pop=False, inplace=True)
+    return new_circuit
+
+
+def popright(circuit, pinned_qubits, atol: float = 1e-8,
+             use_matrix_commutation: bool = True,
+             max_n_qubits_matrix: int = 10, simplify: bool = True,
+             verbose: bool = False) -> Circuit:
+    """Remove gates outside the lightcone of ``pinned_qubits`` (from the
+    right)."""
+    new_circuit = Circuit()
+    for gate in reversed(circuit):
+        insert_from_left(new_circuit, gate, atol=atol,
+                         use_matrix_commutation=use_matrix_commutation,
+                         max_n_qubits_matrix=max_n_qubits_matrix,
+                         simplify=simplify, pop=True,
+                         pinned_qubits=pinned_qubits, inplace=True)
+    return new_circuit
+
+
+def popleft(circuit, pinned_qubits, atol: float = 1e-8,
+            use_matrix_commutation: bool = True, simplify: bool = True,
+            verbose: bool = False) -> Circuit:
+    """Remove gates outside the lightcone of ``pinned_qubits`` (from the
+    left)."""
+    return Circuit(
+        reversed(
+            popright(list(reversed(circuit)), pinned_qubits=pinned_qubits,
+                     atol=atol,
+                     use_matrix_commutation=use_matrix_commutation,
+                     simplify=simplify, verbose=verbose)))
+
+
+def pop(circuit, direction: str, pinned_qubits, atol: float = 1e-8,
+        use_matrix_commutation: bool = True, simplify: bool = True,
+        verbose: bool = False) -> Circuit:
+    """Lightcone pruning in the given direction ('left'|'right'|'both')."""
+    kw = dict(pinned_qubits=pinned_qubits, atol=atol,
+              use_matrix_commutation=use_matrix_commutation,
+              simplify=simplify, verbose=verbose)
+    if direction == 'left':
+        return popleft(circuit, **kw)
+    if direction == 'right':
+        return popright(circuit, **kw)
+    if direction == 'both':
+        return popleft(popright(circuit, **kw), **kw)
+    raise ValueError(f"direction='{direction}' not supported.")
+
+
+def moments(circuit) -> list:
+    """Split a circuit into parallel moments (list of TupleGates)."""
+    circuit = list(circuit)
+    if not circuit:
+        return [TupleGate()]
+
+    def _get_qubits(x):
+        if isinstance(x, BaseGate):
+            return x.qubits if x.n_qubits else tuple()
+        if isinstance(x, Circuit):
+            return x.all_qubits
+        raise ValueError(f"'{x}' is not valid.")
+
+    qubits = sort({q for x in circuit for q in _get_qubits(x)})
+    level_map = {q: 0 for q in qubits}
+    level = [0] * len(circuit)
+    for i, x in enumerate(circuit):
+        xq = _get_qubits(x)
+        if xq:
+            level[i] = max(level_map[q] for q in xq) + 1
+            level_map.update({q: level[i] for q in xq})
+        else:
+            level[i] = max(level) + 1
+            level_map = {q: level[i] for q in qubits}
+    out = [[] for _ in range(max(level))]
+    for i, x in enumerate(circuit):
+        out[level[i] - 1].append(x)
+    return list(map(TupleGate, out))
+
+
+def remove_swap(circuit: Circuit):
+    """Delete SWAP gates by relabeling qubits instead of applying them.
+
+    Returns ``(new_circuit, qubits_map)`` with ``qubits_map`` mapping
+    new_qubit -> old_qubit.  This is the reference's relabel-and-swap trick
+    (``hybridq/circuit/utils.py:1012-1055``); in the sharded engine the same
+    idea rotates global qubits over ICI.
+    """
+    circuit = Circuit(circuit)
+    qmap = {q: q for q in circuit.all_qubits}
+    out = Circuit()
+    SWAP = Gate('SWAP').matrix()
+    inv = {v: k for k, v in qmap.items()}
+
+    for gate in circuit:
+        if gate.n_qubits == 2 and gate.qubits and \
+                gate.provides('matrix') and \
+                np.allclose(gate.matrix(), SWAP):
+            q0, q1 = gate.qubits
+            k0, k1 = inv[q0], inv[q1]
+            qmap[k0], qmap[k1] = qmap[k1], qmap[k0]
+            inv[q0], inv[q1] = k1, k0
+        else:
+            out.append(gate.on([inv[q] for q in gate.qubits]))
+    return out, qmap
+
+
+def expand_iswap(circuit: Circuit) -> Circuit:
+    """Replace each ISWAP with SWAP · CZ · P ⊗ P
+    (reference ``:1058-1097``)."""
+    ISWAP = Gate('ISWAP').matrix()
+    out = Circuit()
+    for gate in circuit:
+        if gate.n_qubits == 2 and gate.qubits and \
+                gate.provides('matrix') and \
+                np.allclose(gate.matrix(), ISWAP):
+            tags = dict(gate.tags)
+            ext = [
+                Gate('SWAP', qubits=gate.qubits, tags=tags),
+                Gate('CZ', qubits=gate.qubits, tags=tags),
+                Gate('P', qubits=[gate.qubits[0]], tags=tags),
+                Gate('P', qubits=[gate.qubits[1]], tags=tags),
+            ]
+            if getattr(gate, 'power', 1) == 1:
+                out.extend(ext)
+            else:
+                out.extend(g**-1 for g in reversed(ext))
+        else:
+            out.append(gate.copy())
+    return out
+
+
+def filter(circuit, names=any, qubits=any, params=any, n_qubits=any,
+           n_params=any, exact_match: bool = False, atol: float = 1e-8,
+           **tags):
+    """Lazily filter gates by name / qubits / params / tags
+    (reference ``:1100-1189``)."""
+    it = iter(circuit)
+    if names is not any:
+        nameset = {str(n).upper() for n in names}
+        it = (g for g in it if g.name in nameset)
+    if qubits is not any:
+        if exact_match:
+            qt = tuple(qubits)
+            it = (g for g in it if g.provides('qubits') and g.qubits == qt)
+        else:
+            qs = set(qubits)
+            it = (g for g in it if g.provides('qubits') and g.qubits and
+                  qs.intersection(g.qubits))
+    if params is not any:
+
+        def _isclose(x, y):
+            try:
+                return np.isclose(float(x), float(y), atol=atol)
+            except (TypeError, ValueError):
+                return x == y
+
+        it = (g for g in it if g.provides('params') and g.params and all(
+            _isclose(x, y) for x, y in zip(g.params, params)))
+    if n_qubits is not any:
+        it = (g for g in it
+              if g.provides('qubits') and g.n_qubits == n_qubits)
+    if n_params is not any:
+        it = (g for g in it
+              if g.provides('params') and len(g.params or ()) == n_params)
+    if tags:
+        if exact_match:
+
+            def _filter(g):
+                return g.provides('tags') and all(
+                    k in g.tags and (v is any or g.tags[k] == v)
+                    for k, v in tags.items())
+        else:
+
+            def _filter(g):
+                return g.provides('tags') and any(
+                    k in g.tags and (v is any or g.tags[k] == v)
+                    for k, v in tags.items())
+
+        it = (g for g in it if _filter(g))
+    return it
+
+
+def to_nx(circuit, add_final_nodes: bool = True, node_tags: dict = None,
+          edge_tags: dict = None, return_qubits_map: bool = False,
+          leaves_prefix: str = 'q'):
+    """Time-directed graph representation of the circuit
+    (reference ``:211-324``)."""
+    import networkx as nx
+
+    node_tags = node_tags or {}
+    edge_tags = edge_tags or {}
+    circuit = Circuit(circuit)
+    qubits = circuit.all_qubits
+    qubits_map = {q: i for i, q in enumerate(qubits)}
+
+    def _is_leaf(node):
+        return isinstance(node, str) and node.startswith(leaves_prefix)
+
+    if any(_is_leaf(q) for q in qubits):
+        raise ValueError(
+            f"No qubits must start with 'leaves_prefix'={leaves_prefix}.")
+
+    graph = nx.DiGraph()
+    for q in qubits:
+        graph.add_node(f'{leaves_prefix}_{qubits_map[q]}_i', qubits=[q],
+                       **node_tags)
+    last_leg = {q: f'{leaves_prefix}_{qubits_map[q]}_i' for q in qubits}
+
+    for x, gate in enumerate(circuit):
+        graph.add_node(x, circuit=Circuit([gate]), qubits=sort(gate.qubits),
+                       **node_tags)
+        graph.add_edges_from([(last_leg[q], x) for q in gate.qubits],
+                             **edge_tags)
+        last_leg.update({q: x for q in gate.qubits})
+
+    if add_final_nodes:
+        for q in qubits:
+            graph.add_node(f'{leaves_prefix}_{qubits_map[q]}_f', qubits=[q],
+                           **node_tags)
+        graph.add_edges_from([(x, f'{leaves_prefix}_{qubits_map[q]}_f')
+                              for q, x in last_leg.items()], **edge_tags)
+
+    if return_qubits_map:
+        return graph, qubits_map
+    return graph

@@ -1,0 +1,339 @@
+"""In-place gate kernels on the split-complex state container.
+
+The counterpart of ``hybridq_tpu/simulation/pallas_fused.py``.  The
+container is the JAX engine's: a contiguous f32 tensor of ``2^(n+1)``
+floats, the real part of physical amplitude ``p`` at ``p`` and the
+imaginary part at ``p + 2^n`` (physical bit ``n`` is the "stack" bit), so
+that containers and slot maps compare one to one with JAX.
+
+Two wrappers, each with a plain PyTorch version beside it:
+
+  * ``apply_fused(state, U, bits)`` applies the complex ``2^k x 2^k``
+    matrix ``U`` to physical bits ``bits`` (MSB of the U index first, all
+    >= 7), in place: ``psi'[p] = sum_j U[i(p), j] psi[p with bits := j]``;
+  * ``apply_swap(state, U, bits, victims)`` applies ``U`` to ``bits``,
+    1-2 of which are lane bits (< 7), and stores amplitude ``p`` at
+    ``sigma(p)``, where sigma swaps lane bit ``a_j`` (lane bits sorted
+    descending) with victim bit ``victims[j]`` (>= 12).  The caller
+    records the relabel in its slot map.
+
+A CUDA tensor goes to the kernel (``csrc/fused_apply.cu``) or raises; a
+CPU tensor goes to the plain version.  The TPU kernels' ``build_w`` /
+``build_w_swap`` operators and 0/1 lane-combine matrices are not carried
+over: the CUDA kernel takes ``U`` itself.
+
+Launch counters are plain ints on this module; ``reset_counts`` zeroes
+them and ``counts`` reads them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import numpy as np
+import torch
+
+__all__ = ['fused_meta', 'swap_meta', 'apply_fused', 'apply_swap',
+           'apply_fused_plain', 'apply_swap_plain', 'reset_counts',
+           'counts', 'FUSED_RUN_ROWS']
+
+FUSED_RUN_ROWS = 32
+_SUB_BITS = 5          # log2(FUSED_RUN_ROWS)
+_LANE_BITS = 7         # 128 lanes = flat bits 0-6
+_MAX_K = 8             # largest gate the CUDA kernel takes
+_MIN_N = 13            # the kernel's tile is 2^13 amplitudes
+
+# Launches of each CUDA kernel, and calls of each plain version.
+fused_launches = 0
+swap_launches = 0
+fused_plain_calls = 0
+swap_plain_calls = 0
+
+
+def reset_counts():
+    global fused_launches, swap_launches, fused_plain_calls, \
+        swap_plain_calls
+    fused_launches = swap_launches = 0
+    fused_plain_calls = swap_plain_calls = 0
+
+
+def counts() -> dict:
+    return {'fused_apply': fused_launches, 'swap_apply': swap_launches,
+            'apply_fused_plain': fused_plain_calls,
+            'apply_swap_plain': swap_plain_calls}
+
+
+# -- host metadata (copied from pallas_fused.py) -----------------------
+
+def _classify_bits(n: int, bits: Sequence[int]):
+    """Split flat amplitude bits into (high desc, sublane desc, lane
+    desc) relative to the fused layout."""
+    hi = sorted((b for b in bits if b >= _LANE_BITS + _SUB_BITS),
+                reverse=True)
+    sub = sorted((b for b in bits
+                  if _LANE_BITS <= b < _LANE_BITS + _SUB_BITS),
+                 reverse=True)
+    lane = sorted((b for b in bits if b < _LANE_BITS), reverse=True)
+    return hi, sub, lane
+
+
+def fused_meta(n: int, bits: Sequence[int]):
+    """Host metadata of the TPU fused kernel for a gate on flat bits
+    ``bits`` (all >= 7): ``(k_hi, h_offs[int32 H2], rest_mask, uperm,
+    sperm)``.  The routing reads ``k_hi``, the kernel class."""
+    bits = [int(b) for b in bits]
+    if any(b < _LANE_BITS for b in bits):
+        raise ValueError("fused kernel handles bits >= 7 only")
+    hi, sub, _ = _classify_bits(n, bits)
+    k_hi = len(hi)
+    n_run_bits = n + 1 - _LANE_BITS - _SUB_BITS   # incl. stack bit
+    stack_run_bit = n_run_bits - 1
+
+    H2 = 2 ** (k_hi + 1)
+    h_offs = np.zeros(H2, dtype=np.int32)
+    for h in range(H2):
+        off = (h >> k_hi) << stack_run_bit
+        for j, b in enumerate(hi):
+            if (h >> (k_hi - 1 - j)) & 1:
+                off |= 1 << (b - _LANE_BITS - _SUB_BITS)
+        h_offs[h] = off
+
+    gate_run_bits = {stack_run_bit}
+    gate_run_bits.update(b - _LANE_BITS - _SUB_BITS for b in hi)
+    rest_mask = 0
+    for p in range(n_run_bits):
+        if p not in gate_run_bits:
+            rest_mask |= 1 << p
+
+    kernel_order = hi + sub
+    k = len(bits)
+    order = [bits.index(b) for b in kernel_order]
+    i = np.arange(2 ** k, dtype=np.int32)
+    uperm = np.zeros(2 ** k, dtype=np.int32)
+    for a, oa in enumerate(order):
+        uperm |= ((i >> (k - 1 - a)) & 1) << (k - 1 - oa)
+
+    sub_rel = [b - _LANE_BITS for b in sub]
+    rest_rel = [p for p in range(_SUB_BITS) if p not in sub_rel]
+    x = np.arange(FUSED_RUN_ROWS, dtype=np.int32)
+    gate_part = np.zeros_like(x)
+    for j, p in enumerate(sub_rel):
+        gate_part |= ((x >> p) & 1) << (len(sub_rel) - 1 - j)
+    rest_part = np.zeros_like(x)
+    for i2, p in enumerate(rest_rel):
+        rest_part |= ((x >> p) & 1) << i2
+    sperm = (gate_part << len(rest_rel)) | rest_part
+    return k_hi, h_offs, int(rest_mask), uperm, sperm.astype(np.int32)
+
+
+def swap_meta(n: int, bits: Sequence[int], victims: Sequence[int]):
+    """Host metadata of the TPU swap kernel: gate on flat ``bits`` whose
+    lane bits are exchanged with flat high bits ``victims`` (one per lane
+    bit, each >= 12, not in ``bits``).  Returns ``(k_hi, k_l, h_offs,
+    rest_mask)``; the TPU kernel's lane-combine matrices are not needed
+    here."""
+    bits = [int(b) for b in bits]
+    victims = [int(v) for v in victims]
+    hi, sub, lane = _classify_bits(n, bits)
+    k_hi, k_l = len(hi), len(lane)
+    if len(victims) != k_l:
+        raise ValueError("need one victim high bit per lane bit")
+    if any(v < _LANE_BITS + _SUB_BITS or v in bits for v in victims):
+        raise ValueError("victims must be free high bits")
+    n_run_bits = n + 1 - _LANE_BITS - _SUB_BITS
+    stack_run_bit = n_run_bits - 1
+
+    hbits = victims + hi
+    ke = len(hbits)
+    H2 = 2 ** (ke + 1)
+    h_offs = np.zeros(H2, dtype=np.int32)
+    for h in range(H2):
+        off = (h >> ke) << stack_run_bit
+        for j, b in enumerate(hbits):
+            if (h >> (ke - 1 - j)) & 1:
+                off |= 1 << (b - _LANE_BITS - _SUB_BITS)
+        h_offs[h] = off
+    gate_run_bits = {stack_run_bit}
+    gate_run_bits.update(b - _LANE_BITS - _SUB_BITS for b in hbits)
+    rest_mask = 0
+    for p in range(n_run_bits):
+        if p not in gate_run_bits:
+            rest_mask |= 1 << p
+    return k_hi, k_l, h_offs, int(rest_mask)
+
+
+# -- argument checks ---------------------------------------------------
+
+def _n_of(state: torch.Tensor) -> int:
+    if state.dtype != torch.float32 or state.dim() != 1 or \
+            not state.is_contiguous():
+        raise ValueError("state must be a contiguous 1-D float32 tensor")
+    size = state.numel()
+    n = size.bit_length() - 2
+    if size != 2 ** (n + 1) or n < _MIN_N:
+        raise ValueError(f"state must hold 2^(n+1) floats, n >= {_MIN_N}")
+    return n
+
+
+def _check_bits(n, bits, victims=()):
+    allb = list(bits) + list(victims)
+    if len(set(allb)) != len(allb) or any(not 0 <= b < n for b in allb):
+        raise ValueError(f"bits {list(bits)} / victims {list(victims)} "
+                         f"must be distinct and in [0, {n})")
+    if not 1 <= len(bits) <= _MAX_K:
+        raise ValueError(f"gates of 1..{_MAX_K} qubits only")
+
+
+def _operand(U, k: int, device) -> torch.Tensor:
+    U = torch.as_tensor(U).to(device=device, dtype=torch.complex64)
+    if U.shape != (2 ** k, 2 ** k):
+        raise ValueError(f"U must be {2 ** k}x{2 ** k}, got {U.shape}")
+    return U.contiguous()
+
+
+def _swap_pairs(bits, victims):
+    """Lane bits sorted descending, paired with ``victims`` in order (the
+    pairing of ``pallas_fused.swap_meta``)."""
+    lane = sorted((int(b) for b in bits if b < _LANE_BITS), reverse=True)
+    victims = [int(v) for v in victims]
+    if not 1 <= len(lane) <= 2 or len(victims) != len(lane):
+        raise ValueError("swap path takes 1-2 lane bits, one victim each")
+    if any(v < _LANE_BITS + _SUB_BITS for v in victims):
+        raise ValueError("victims must be high bits (>= 12)")
+    return lane, victims
+
+
+# -- CUDA launch -------------------------------------------------------
+
+_ARGTYPES_SET = False
+
+
+def _launch(state, U, n, bits, lane, victims):
+    global _ARGTYPES_SET
+    from hybridq_tpu_torch.simulation import _build
+
+    lib = _build.load('fused_apply')
+    fn = lib.hq_group_apply
+    if not _ARGTYPES_SET:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _ARGTYPES_SET = True
+    if U.device != state.device:
+        raise ValueError("U and state must be on the same device")
+    k, kv = len(bits), len(victims)
+    gb = (ctypes.c_int * 8)(*bits)
+    ab = (ctypes.c_int * 2)(*lane)
+    vb = (ctypes.c_int * 2)(*victims)
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        err = fn(state.data_ptr(), U.data_ptr(), n, k, gb, kv, ab, vb,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"fused_apply kernel launch failed: CUDA error "
+                           f"{err} (n={n}, bits={bits}, victims={victims})")
+
+
+# -- wrappers ----------------------------------------------------------
+
+def apply_fused(state: torch.Tensor, U, bits: Sequence[int]
+                ) -> torch.Tensor:
+    """Apply ``U`` to physical bits ``bits`` (all >= 7) of ``state`` in
+    place; returns ``state``."""
+    global fused_launches
+    n = _n_of(state)
+    bits = [int(b) for b in bits]
+    _check_bits(n, bits)
+    if any(b < _LANE_BITS for b in bits):
+        raise ValueError("apply_fused handles bits >= 7 only")
+    if state.device.type == 'cpu':
+        return apply_fused_plain(state, U, bits)
+    if state.device.type != 'cuda':
+        raise ValueError(f"no kernel for device {state.device}")
+    U = _operand(U, len(bits), state.device)
+    _launch(state, U, n, bits, [], [])
+    fused_launches += 1
+    return state
+
+
+def apply_swap(state: torch.Tensor, U, bits: Sequence[int],
+               victims: Sequence[int]) -> torch.Tensor:
+    """Apply ``U`` to ``bits`` and exchange each lane bit with its victim
+    bit, in place; returns ``state``."""
+    global swap_launches
+    n = _n_of(state)
+    bits = [int(b) for b in bits]
+    _check_bits(n, bits, victims)
+    lane, victims = _swap_pairs(bits, victims)
+    if state.device.type == 'cpu':
+        return apply_swap_plain(state, U, bits, victims)
+    if state.device.type != 'cuda':
+        raise ValueError(f"no kernel for device {state.device}")
+    U = _operand(U, len(bits), state.device)
+    _launch(state, U, n, bits, lane, victims)
+    swap_launches += 1
+    return state
+
+
+# -- plain versions ----------------------------------------------------
+
+def _group_index(n, bits, victims, device) -> torch.Tensor:
+    """``idx[j, c]``: physical index of gate row ``j`` of column ``c``;
+    columns run over (victim combination, rest index)."""
+    group = sorted(set(bits) | set(victims))
+    rest_bits = [b for b in range(n) if b not in group]
+    r = torch.arange(2 ** len(rest_bits), dtype=torch.int64, device=device)
+    base = torch.zeros_like(r)
+    for i, b in enumerate(rest_bits):
+        base |= ((r >> i) & 1) << b
+    kv = len(victims)
+    c = torch.arange(2 ** kv, dtype=torch.int64, device=device)
+    voff = torch.zeros_like(c)
+    for j, v in enumerate(victims):
+        voff |= ((c >> (kv - 1 - j)) & 1) << v
+    k = len(bits)
+    j = torch.arange(2 ** k, dtype=torch.int64, device=device)
+    goff = torch.zeros_like(j)
+    for a, b in enumerate(bits):
+        goff |= ((j >> (k - 1 - a)) & 1) << b
+    cols = (voff[:, None] | base[None, :]).reshape(-1)
+    return goff[:, None] | cols[None, :]
+
+
+def _plain(state, U, bits, lane, victims):
+    n = _n_of(state)
+    N = 2 ** n
+    re, im = state[:N], state[N:]
+    U = _operand(U, len(bits), state.device)
+    idx = _group_index(n, bits, victims, state.device)
+    X = torch.complex(re[idx], im[idx])
+    Y = torch.matmul(U, X)
+    del X
+    for a, v in zip(lane, victims):
+        d = ((idx >> a) ^ (idx >> v)) & 1
+        idx ^= (d << a) | (d << v)
+    re[idx] = Y.real
+    im[idx] = Y.imag
+    return state
+
+
+def apply_fused_plain(state: torch.Tensor, U, bits: Sequence[int]
+                      ) -> torch.Tensor:
+    """Plain PyTorch version of ``apply_fused`` (gather, complex64
+    matmul, scatter)."""
+    global fused_plain_calls
+    fused_plain_calls += 1
+    return _plain(state, U, [int(b) for b in bits], [], [])
+
+
+def apply_swap_plain(state: torch.Tensor, U, bits: Sequence[int],
+                     victims: Sequence[int]) -> torch.Tensor:
+    """Plain PyTorch version of ``apply_swap``."""
+    global swap_plain_calls
+    swap_plain_calls += 1
+    bits = [int(b) for b in bits]
+    lane, victims = _swap_pairs(bits, victims)
+    return _plain(state, U, bits, lane, victims)

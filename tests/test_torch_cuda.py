@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports nothing of JAX and needs no fixture of ``tests/conftest.py``, so
+on the card it runs without the JAX test setup:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+
+Tolerance: max|d| <= 1e-5 on a unit-norm state -- f32 sums taken in
+another order than ``torch.matmul``'s.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hybridq_tpu_torch.simulation import fused_kernels as fk
+from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
+
+ATOL = 1e-5
+FUSED_CLASSES = [0, 1, 2, 3, 4]
+SWAP_CLASSES = [(1, 1), (2, 1), (3, 1), (4, 1), (2, 2), (3, 2), (4, 2)]
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (on the card: python -m pytest "
+                    "--noconftest -m gpu tests/test_torch_cuda.py)")
+    return torch.device('cuda')
+
+
+def _rand_u(k, rng):
+    m = rng.standard_normal((2**k, 2**k)) + \
+        1j * rng.standard_normal((2**k, 2**k))
+    return np.linalg.qr(m)[0]
+
+
+def _rand_state(n, rng, device):
+    st = rng.standard_normal(2**(n + 1)).astype(np.float32)
+    return torch.from_numpy(st / np.linalg.norm(st)).to(device)
+
+
+def _class_gate(n, k_hi, k_l, rng):
+    """Random bits of a routing class (see test_torch_fused_kernels)."""
+    high = [int(b) for b in rng.choice(range(12, n), k_hi + k_l,
+                                       replace=False)]
+    gate_hi, victims = high[:k_hi], high[k_hi:]
+    k_sub = int(rng.integers(0 if k_hi + k_l else 1, 3))
+    sub = [int(b) for b in rng.choice(range(7, 12), k_sub, replace=False)]
+    lane = [int(b) for b in rng.choice(7, k_l, replace=False)]
+    bits = gate_hi + sub + lane
+    rng.shuffle(bits)
+    return bits, victims
+
+
+@pytest.mark.parametrize('kind, cls', [('fused', (k,))
+                                       for k in FUSED_CLASSES] +
+                         [('swap', c) for c in SWAP_CLASSES])
+def test_cuda_kernel_matches_plain(kind, cls, cuda):
+    rng = np.random.default_rng(sum(cls) + 10 * len(cls))
+    n = 22
+    k_hi, k_l = (cls[0], 0) if kind == 'fused' else (cls[0] - cls[1],
+                                                     cls[1])
+    bits, victims = _class_gate(n, k_hi, k_l, rng)
+    U = torch.as_tensor(_rand_u(len(bits), rng), dtype=torch.complex64,
+                        device=cuda)
+    st = _rand_state(n, rng, cuda)
+    a, b = st.clone(), st.clone()
+    fk.reset_counts()
+    if kind == 'fused':
+        fk.apply_fused(a, U, bits)
+        fk.apply_fused_plain(b, U, bits)
+    else:
+        fk.apply_swap(a, U, bits, victims)
+        fk.apply_swap_plain(b, U, bits, victims)
+    torch.cuda.synchronize()
+    assert fk.counts()['fused_apply' if kind == 'fused'
+                       else 'swap_apply'] == 1
+    assert (a - b).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize('k', range(1, 9))
+def test_cuda_fused_every_gate_size(k, cuda):
+    rng = np.random.default_rng(k)
+    n = 20
+    bits = [int(b) for b in rng.choice(range(7, n), k, replace=False)]
+    U = torch.as_tensor(_rand_u(k, rng), dtype=torch.complex64,
+                        device=cuda)
+    st = _rand_state(n, rng, cuda)
+    a, b = st.clone(), st.clone()
+    fk.apply_fused(a, U, bits)
+    fk.apply_fused_plain(b, U, bits)
+    torch.cuda.synchronize()
+    assert (a - b).abs().max().item() <= ATOL
+
+
+def test_cuda_evolver_matches_cpu_evolver(cuda):
+    """Same gates on the card and on the host: same routing, same
+    containers within f32 rounding."""
+    n = 18
+    rng = np.random.default_rng(7)
+    ev_c, ev_h = FusedEvolver(n, device=cuda), FusedEvolver(n, device='cpu')
+    s_c, s_h = ev_c.prepare_state('+' * n), ev_h.prepare_state('+' * n)
+    for _ in range(12):
+        k = int(rng.integers(1, 5))
+        qs = tuple(int(q) for q in rng.choice(n, k, replace=False))
+        U = _rand_u(k, rng)
+        s_c = ev_c.apply_gate(s_c, U, qs)
+        s_h = ev_h.apply_gate(s_h, U, qs)
+        assert ev_c.phys == ev_h.phys
+    assert (s_c.cpu() - s_h).abs().max().item() <= ATOL
+    got = ev_c.gather(s_c).cpu()
+    want = ev_h.gather(s_h)
+    assert (got - want).abs().max().item() <= ATOL
