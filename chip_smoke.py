@@ -19,6 +19,19 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              40 random gates after an H layer: max|d| over the largest
              amplitude <= 3e-6 at both depths, max|d|/rms <= 1e-5 at 20
              (the roadmap's contract is 1e-6); both kernels must launch;
+  paths      n = 30, the public functions of the other ported kernels at
+             the bit sets the JAX package's callers use: ``apply_factored``
+             (``probe_fused_perf.py``'s and ``probe_fused_check.py``'s
+             cases and the largest the port takes; beside each with one or
+             two lane bits, ``apply_swap`` on the product with the victims
+             ``FusedEvolver`` picks), ``apply_gate_rows`` (``test_pallas.py``'s
+             positions at L = 10, and n = 12) and ``apply_fused_k4`` (the
+             main path's and ``probe_fused_k4.py``'s bits, beside
+             ``apply_fused``).  Each path runs once with launch counts
+             zeroed just before and read just after, and must keep the
+             norm; then each case is held against its plain version
+             (max|d|/rms <= 1e-5) and timed with its bound and one PyTorch
+             call of the same function;
   main_path  n = 30 (8 GiB of state), the workload of ``bench.py``: 24
              random 4-qubit unitaries avoiding bits 0-2.  First through
              ``simulate(..., optimize='evolution')``, with launch counts
@@ -53,6 +66,22 @@ N_PARITY = 24
 PARITY_GATES = (20, 40)
 N_MAIN = 30
 MAIN_GATES = 24
+N_PATHS = 30
+# (row_bits, lane_bits): probe_fused_perf.py's FACT_CASES, then
+# probe_fused_check.py's four, then the largest the port takes (JAX's
+# k_hi <= 4 high bits plus 5 sublane bits, all 7 lane bits).
+FACTORED_CASES = [((), (6, 5, 4, 3)), ((27, 9), (6, 5)), ((27, 20), (6, 5)),
+                  ((15, 9), (4, 2)), ((), (6, 3, 0)), ((14, 13), (5,)),
+                  ((9, 15), (2, 4)),
+                  ((29, 28, 27, 26, 11, 10, 9, 8, 7), (6, 5, 4, 3, 2, 1, 0))]
+# (n, L, row positions): test_pallas.py's, and the smallest register.
+GATE_ROWS_CASES = [(N_PATHS, 10, (0,)), (N_PATHS, 10, (3, 0)),
+                   (N_PATHS, 10, (1, 3, 0, 2)), (12, 10, (1, 0))]
+# the main path's replay bits, and probe_fused_k4.py's k_hi = 4 bits
+FUSED_K4_CASES = [(22, 16, 9, 14), (27, 20, 14, 12)]
+# the case of each path that the summary line reports
+SUMMARY_CASE = {'factored_apply': 2, 'apply_gate_rows': 2,
+                'fused_k4_apply': 0}
 TOL = 1e-5                 # max|d|/rms, kernel against plain (f32 sums)
 # max|d| / max|amp| of simulate against the complex128 oracle: f32
 # evolution gives 6e-7 to 8e-7 at these depths on the card and on the CPU.
@@ -63,11 +92,19 @@ NORM_TOL = 1e-4
 # tensor cores.
 _PEAKS = {'H100 PCIe': (2.0e12, 51.2e12), 'H200': (4.8e12, 67e12),
           'H100': (3.35e12, 67e12)}
+# wrapper -> (source in the repo, the TPU kernel it replaces)
 KERNEL_INFO = {
-    'fused_apply': 'hybridq_tpu/simulation/pallas_fused.py:175',
-    'swap_apply': 'hybridq_tpu/simulation/pallas_fused.py:446',
+    'fused_apply': ('hybridq_tpu_torch/csrc/fused_apply.cu',
+                    'hybridq_tpu/simulation/pallas_fused.py:175'),
+    'swap_apply': ('hybridq_tpu_torch/csrc/fused_apply.cu',
+                   'hybridq_tpu/simulation/pallas_fused.py:446'),
+    'apply_gate_rows': ('hybridq_tpu_torch/csrc/fused_apply.cu',
+                        'hybridq_tpu/simulation/pallas_kernels.py:201'),
+    'factored_apply': ('hybridq_tpu_torch/csrc/factored_apply.cu',
+                       'hybridq_tpu/simulation/pallas_fused.py:633'),
+    'fused_k4_apply': ('hybridq_tpu_torch/csrc/fused_k4.cu',
+                       'scripts/probe_fused_k4.py:24'),
 }
-SOURCE = 'hybridq_tpu_torch/csrc/fused_apply.cu'
 
 
 class PhaseError(RuntimeError):
@@ -101,12 +138,14 @@ def peaks(name):
     return _PEAKS['H100']
 
 
-def bound(n, k, name):
+def bound(n, k, name, flops_needed=None):
     """Least time (ms) for one gate pass: the whole state read and
-    written once, or 8 * 2^(n+k) fp32 flops."""
+    written once, or ``flops_needed`` fp32 flops (default 8 * 2^(n+k),
+    a k-qubit gate)."""
     bw, flops = peaks(name)
     t_bytes = 2 * 2 ** (n + 1) * 4 / bw
-    t_ops = 8 * 2 ** (n + k) / flops
+    t_ops = (8 * 2 ** (n + k) if flops_needed is None
+             else flops_needed) / flops
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                        else 'operations')
 
@@ -140,49 +179,64 @@ def rand_state(n, gen):
     return st
 
 
-def compare_kernel(n, kind, U, bits, victims, gen, name, reps,
-                   plain_reps=2):
-    """Kernel against plain version on one random state; returns the
-    measured numbers."""
+def hold(make, kern, plain, rms, reps=REPS, plain_reps=2):
+    """``kern`` and ``plain`` each on a copy of one state from ``make()``
+    (a tuple of tensors), compared, then timed in turn on their copies;
+    returns the measured numbers."""
+    import torch
+
+    a = make()
+    b = tuple(t.clone() for t in a)
+    kern(*a)
+    plain(*b)
+    torch.cuda.synchronize()
+    d = max((x - y).abs_().max().item() for x, y in zip(a, b))
+    ms = time_ms(lambda: kern(*a), reps)
+    plain_ms = time_ms(lambda: plain(*b), plain_reps)
+    del a, b
+    torch.cuda.empty_cache()
+    return {'max_abs_err': d, 'rel_err': d / rms, 'ms': ms,
+            'plain_ms': plain_ms}
+
+
+def library_ms(fn, *shapes, reps=REPS):
+    """Time of ``fn`` on random complex64 tensors of ``shapes`` (the
+    operands a PyTorch call of the same function takes)."""
+    import torch
+
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    args = [torch.randn(*sh, dtype=torch.complex64, device='cuda',
+                        generator=gen) for sh in shapes]
+    t = time_ms(lambda: fn(*args), reps)
+    del args
+    torch.cuda.empty_cache()
+    return t
+
+
+def compare_kernel(n, kind, U, bits, victims, gen, name, reps):
+    """``fused_apply`` or ``swap_apply`` against its plain version on
+    one random unit-norm state, timed beside its bound and a
+    ``torch.matmul`` of the same arithmetic."""
     import torch
     from hybridq_tpu_torch.simulation import fused_kernels as fk
 
-    st = rand_state(n, gen)
-    a, b = st.clone(), st.clone()
     Ud = torch.as_tensor(U, device='cuda')
     if kind == 'fused':
-        def kern(s=a):
-            fk.apply_fused(s, Ud, bits)
-
-        def plain(s=b):
-            fk.apply_fused_plain(s, Ud, bits)
+        r = hold(lambda: (rand_state(n, gen),),
+                 lambda s: fk.apply_fused(s, Ud, bits),
+                 lambda s: fk.apply_fused_plain(s, Ud, bits),
+                 2.0 ** (-n / 2), reps)
     else:
-        def kern(s=a):
-            fk.apply_swap(s, Ud, bits, victims)
-
-        def plain(s=b):
-            fk.apply_swap_plain(s, Ud, bits, victims)
-    kern()
-    plain()
-    torch.cuda.synchronize()
-    d = (a - b).abs_().max().item()
-    rms = 2.0 ** (-n / 2)      # of the amplitudes of a unit-norm state
-    del st
-    ms = time_ms(kern, reps)
-    plain_ms = time_ms(plain, plain_reps)
-    del kern, plain, a, b
-    torch.cuda.empty_cache()
+        r = hold(lambda: (rand_state(n, gen),),
+                 lambda s: fk.apply_swap(s, Ud, bits, victims),
+                 lambda s: fk.apply_swap_plain(s, Ud, bits, victims),
+                 2.0 ** (-n / 2), reps)
     k = len(bits)
-    M = 2 ** k
-    psi = torch.randn(M, 2 ** (n - k), dtype=torch.complex64,
-                      device='cuda', generator=gen)
-    lib_ms = time_ms(lambda: torch.matmul(Ud, psi), reps)
-    del psi
-    torch.cuda.empty_cache()
-    b_ms, b_by = bound(n, k, name)
-    return {'max_abs_err': d, 'rel_err': d / rms, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-            'library_ms': lib_ms}
+    r['bound_ms'], r['bound_by'] = bound(n, k, name)
+    r['library_ms'] = library_ms(torch.matmul, (2 ** k, 2 ** k),
+                                 (2 ** k, 2 ** (n - k)), reps=reps)
+    return r
 
 
 def swap_bits(n, k, kl):
@@ -227,7 +281,8 @@ def phase_build(out):
     t0 = time.perf_counter()
     libs = _build.build_all()
     dt = time.perf_counter() - t0
-    check('fused_apply' in libs, "fused_apply was not built")
+    for src in ('fused_apply', 'factored_apply', 'fused_k4'):
+        check(src in libs, f"{src} was not built")
     nvcc = subprocess.run([_build.nvcc_path(), '--version'],
                           capture_output=True, text=True).stdout
     ptxas = [ln.strip() for log in _build.LOGS.values()
@@ -347,6 +402,180 @@ def phase_parity(out):
                   f"{d / rms:.3g} > {TOL}")
         del psi
         torch.cuda.empty_cache()
+
+
+def run_path(cases, module, key, apply_one, make):
+    """Drive one path: every case once through its public function on
+    one state, the launch counts of ``module`` zeroed just before and
+    ``key``'s read just after; the state must keep its norm (every gate
+    is unitary)."""
+    import torch
+
+    state = make()
+    module.reset_counts()
+    for case in cases:
+        apply_one(state, case)
+    torch.cuda.synchronize()
+    launches = module.counts()[key]
+    norm = torch.sqrt(sum(torch.linalg.vector_norm(t) ** 2
+                          for t in state)).item()
+    del state
+    torch.cuda.empty_cache()
+    check(abs(norm - 1) <= NORM_TOL, f"paths: norm {norm} after "
+          f"{len(cases)} gates")
+    return launches
+
+
+def phase_paths(out, name):
+    """See the module docstring; returns the summary entries of
+    ``factored_apply``, ``apply_gate_rows`` and ``fused_k4_apply``."""
+    import torch
+    from hybridq_tpu_torch.probes import fused_k4
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+    from hybridq_tpu_torch.simulation import row_kernels as rk
+    from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
+
+    n = N_PATHS
+    card = card_power()
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    rms = 2.0 ** (-n / 2)      # of the amplitudes of a unit-norm state
+
+    def container():
+        return (rand_state(n, gen),)
+
+    def cu(U):
+        return torch.as_tensor(U, device='cuda')
+
+    summary = []
+
+    def summarize(kname, rows, path_launches):
+        r = rows[SUMMARY_CASE[kname]]
+        check(path_launches > 0, f"paths: {kname} was not launched")
+        src, replaces = KERNEL_INFO[kname]
+        summary.append({'name': kname, 'route': 'cuda', 'source': src,
+                        'replaces': replaces, 'launches': path_launches,
+                        'max_abs_err': max(x['max_abs_err'] for x in rows),
+                        'ms': r['ms'], 'plain_ms': r['plain_ms'],
+                        'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms']})
+
+    # -- factored_apply ------------------------------------------------
+    fact = []
+    for row_bits, lane_bits in FACTORED_CASES:
+        kr, kl = len(row_bits), len(lane_bits)
+        Ur = cu(rand_unitary(kr, rng) if kr else np.ones((1, 1),
+                                                          np.complex64))
+        Ul = cu(rand_unitary(kl, rng))
+        fact.append((row_bits, lane_bits, Ur, Ul))
+    launches = run_path(
+        fact, fk, 'factored_apply',
+        lambda st, c: fk.apply_factored(st[0], c[2], c[0], c[3], c[1]),
+        container)
+    rows = []
+    ev = FusedEvolver(n, device='cuda')
+    for row_bits, lane_bits, Ur, Ul in fact:
+        kr, kl = len(row_bits), len(lane_bits)
+        r = hold(container,
+                 lambda s: fk.apply_factored(s, Ur, row_bits, Ul, lane_bits),
+                 lambda s: fk.apply_factored_plain(s, Ur, row_bits, Ul,
+                                                   lane_bits), rms)
+        flops = 8 * 2 ** n * (2 ** kl + (2 ** kr if kr else 0))
+        r['bound_ms'], r['bound_by'] = bound(n, kr + kl, name, flops)
+        # U_row (x) U_lane on the state viewed with the gate bits
+        # outermost, as one einsum (operands in the order that contracts
+        # U_lane first: U_row x U_lane alone would be 2^(2(kr+kl)) wide)
+        r['library_ms'] = library_ms(
+            lambda ul, psi, ur: torch.einsum('cd,bdr,ab->acr', ul, psi, ur),
+            (2 ** kl, 2 ** kl), (2 ** kr, 2 ** kl, 2 ** (n - kr - kl)),
+            (2 ** kr, 2 ** kr))
+        if kl <= 2:
+            # the swap route of the same gate, as FusedEvolver takes it
+            bits = list(row_bits) + list(lane_bits)
+            victims = ev._victims(kl, set(bits))
+            U = torch.kron(Ur, Ul)
+            st = rand_state(n, gen)
+            r['swap_ms'] = time_ms(
+                lambda: fk.apply_swap(st, U, bits, victims), REPS)
+            r['swap_victims'] = victims
+            del st
+            torch.cuda.empty_cache()
+        r.update({'row_bits': list(row_bits), 'lane_bits': list(lane_bits)})
+        rows.append(r)
+        emit({'phase': 'paths', 'path': 'factored_apply', 'n': n, **r,
+              'card': card}, out)
+        check(r['rel_err'] <= TOL, f"factored {row_bits} x {lane_bits}: "
+              f"max|d|/rms {r['rel_err']:.3g} > {TOL}")
+    summarize('factored_apply', rows, launches)
+
+    # -- apply_gate_rows ------------------------------------------------
+    gr = []
+    for m, L, pos in GATE_ROWS_CASES:
+        U = rand_unitary(len(pos), rng)
+        gr.append((m, L, pos, cu(U.real.copy()), cu(U.imag.copy())))
+
+    def rows_state(m):
+        def make():
+            st = rand_state(m, gen)
+            return st[:2 ** m].clone(), st[2 ** m:].clone()
+        return make
+    launches = 0
+    for m in sorted({c[0] for c in gr}):
+        launches += run_path(
+            [c for c in gr if c[0] == m], rk, 'apply_gate_rows',
+            lambda st, c: rk.apply_gate_rows(st[0], st[1], c[3], c[4],
+                                             c[2], c[0], c[1]),
+            rows_state(m))
+    rows = []
+    for m, L, pos, Ur, Ui in gr:
+        k = len(pos)
+        r = hold(rows_state(m),
+                 lambda re, im: rk.apply_gate_rows(re, im, Ur, Ui, pos, m, L),
+                 lambda re, im: rk.apply_gate_rows_plain(re, im, Ur, Ui, pos,
+                                                         m, L),
+                 2.0 ** (-m / 2))
+        r['bound_ms'], r['bound_by'] = bound(m, k, name)
+        r['library_ms'] = library_ms(torch.matmul, (2 ** k, 2 ** k),
+                                     (2 ** k, 2 ** (m - k)))
+        r.update({'n': m, 'L': L, 'positions': list(pos)})
+        rows.append(r)
+        emit({'phase': 'paths', 'path': 'apply_gate_rows', **r,
+              'card': card}, out)
+        check(r['rel_err'] <= TOL, f"gate_rows n={m} {pos}: max|d|/rms "
+              f"{r['rel_err']:.3g} > {TOL}")
+    summarize('apply_gate_rows', rows, launches)
+
+    # -- fused_k4_apply -------------------------------------------------
+    k4 = [(bits, cu(rand_unitary(4, rng))) for bits in FUSED_K4_CASES]
+    launches = run_path(
+        k4, fused_k4, 'fused_k4_apply',
+        lambda st, c: fused_k4.apply_fused_k4(st[0], c[1], c[0]), container)
+    rows = []
+    for bits, U in k4:
+        r = hold(container, lambda s: fused_k4.apply_fused_k4(s, U, bits),
+                 lambda s: fk.apply_fused_plain(s, U, bits), rms)
+        st = rand_state(n, gen)
+        # the general kernel on the same bits and U, in turns with k4
+        r['fused_apply_ms'] = time_ms(lambda: fk.apply_fused(st, U, bits),
+                                      REPS)
+        r['ms_again'] = time_ms(
+            lambda: fused_k4.apply_fused_k4(st, U, bits), REPS)
+        del st
+        torch.cuda.empty_cache()
+        r['bound_ms'], r['bound_by'] = bound(n, 4, name)
+        r['library_ms'] = library_ms(torch.matmul, (16, 16),
+                                     (16, 2 ** (n - 4)))
+        r['bits'] = list(bits)
+        rows.append(r)
+        emit({'phase': 'paths', 'path': 'fused_k4_apply', 'n': n, **r,
+              'card': card}, out)
+        check(r['rel_err'] <= TOL, f"fused_k4 {bits}: max|d|/rms "
+              f"{r['rel_err']:.3g} > {TOL}")
+    summarize('fused_k4_apply', rows, launches)
+    emit({'phase': 'paths', 'ok': True, 'n': n, 'card': card}, out)
+    return summary
 
 
 def bench_workload(n, k, n_gates, rng, min_bit=3):
@@ -494,8 +723,9 @@ def phase_main_path(out, name):
               'k': k, 'bits': bits, 'victims': victims, **r}, out)
         check(r['rel_err'] <= TOL, f"{kname} at n={n}: max|d|/rms "
               f"{r['rel_err']:.3g} > {TOL}")
-        summary.append({'name': kname, 'route': 'cuda', 'source': SOURCE,
-                        'replaces': KERNEL_INFO[kname],
+        src, replaces = KERNEL_INFO[kname]
+        summary.append({'name': kname, 'route': 'cuda', 'source': src,
+                        'replaces': replaces,
                         'launches': launches[kname],
                         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                         'plain_ms': r['plain_ms'],
@@ -531,11 +761,12 @@ def main(argv=None):
         phase_build(out)
         phase_kernels(out, name)
         phase_parity(out)
-        emit({'kernels': phase_main_path(out, name)}, out)
+        paths = phase_paths(out, name)
+        emit({'kernels': phase_main_path(out, name) + paths}, out)
         print(card_power(), flush=True)
+        # count: the one card the run used (device 0)
         print(json.dumps({'ok': True, 'device': {
-            'platform': 'gpu', 'kind': name,
-            'count': torch.cuda.device_count()}}), flush=True)
+            'platform': 'gpu', 'kind': name, 'count': 1}}), flush=True)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -8,6 +8,9 @@ nor ``hybridq_tpu``.
 
 Engines:
   * state-vector evolution  — `hybridq_tpu_torch.simulation.simulate`
+
+Kernels off the engine's path: `simulation.apply_factored`,
+`simulation.apply_gate_rows` and the probe `probes.apply_fused_k4`.
 """
 
 __version__ = '0.1.0'

@@ -1,8 +1,12 @@
 """Simulation engines: state-vector evolution on CUDA kernels (fused
-engine) and on plain PyTorch (small registers, CPU)."""
+engine) and on plain PyTorch (small registers, CPU); the gate kernels'
+public functions beside the engine's."""
 
 from hybridq_tpu_torch.simulation.prepare import prepare_state
 from hybridq_tpu_torch.simulation.simulation import (simulate,
                                                      expectation_value)
+from hybridq_tpu_torch.simulation.fused_kernels import apply_factored
+from hybridq_tpu_torch.simulation.row_kernels import apply_gate_rows
 
-__all__ = ['prepare_state', 'simulate', 'expectation_value']
+__all__ = ['prepare_state', 'simulate', 'expectation_value',
+           'apply_factored', 'apply_gate_rows']

@@ -6,7 +6,7 @@ floats, the real part of physical amplitude ``p`` at ``p`` and the
 imaginary part at ``p + 2^n`` (physical bit ``n`` is the "stack" bit), so
 that containers and slot maps compare one to one with JAX.
 
-Two wrappers, each with a plain PyTorch version beside it:
+Three wrappers, each with a plain PyTorch version beside it:
 
   * ``apply_fused(state, U, bits)`` applies the complex ``2^k x 2^k``
     matrix ``U`` to physical bits ``bits`` (MSB of the U index first, all
@@ -15,12 +15,16 @@ Two wrappers, each with a plain PyTorch version beside it:
     1-2 of which are lane bits (< 7), and stores amplitude ``p`` at
     ``sigma(p)``, where sigma swaps lane bit ``a_j`` (lane bits sorted
     descending) with victim bit ``victims[j]`` (>= 12).  The caller
-    records the relabel in its slot map.
+    records the relabel in its slot map;
+  * ``apply_factored(state, U_row, row_bits, U_lane, lane_bits)`` applies
+    ``U_row (x) U_lane`` to ``row_bits + lane_bits`` (row bits >= 7, lane
+    bits < 7), the counterpart of ``pallas_fused.factored_kernel``.
 
-A CUDA tensor goes to the kernel (``csrc/fused_apply.cu``) or raises; a
-CPU tensor goes to the plain version.  The TPU kernels' ``build_w`` /
-``build_w_swap`` operators and 0/1 lane-combine matrices are not carried
-over: the CUDA kernel takes ``U`` itself.
+A CUDA tensor goes to the kernel (``csrc/fused_apply.cu``,
+``csrc/factored_apply.cu``) or raises; a CPU tensor goes to the plain
+version.  The TPU kernels' ``build_w`` / ``build_w_swap`` /
+``build_w_factored`` operators and 0/1 lane-combine matrices are not
+carried over: the CUDA kernels take the gate's own matrices.
 
 Launch counters are plain ints on this module; ``reset_counts`` zeroes
 them and ``counts`` reads them.
@@ -35,33 +39,40 @@ import numpy as np
 import torch
 
 __all__ = ['fused_meta', 'swap_meta', 'apply_fused', 'apply_swap',
-           'apply_fused_plain', 'apply_swap_plain', 'reset_counts',
-           'counts', 'FUSED_RUN_ROWS']
+           'apply_factored', 'apply_fused_plain', 'apply_swap_plain',
+           'apply_factored_plain', 'reset_counts', 'counts',
+           'FUSED_RUN_ROWS']
 
 FUSED_RUN_ROWS = 32
 _SUB_BITS = 5          # log2(FUSED_RUN_ROWS)
 _LANE_BITS = 7         # 128 lanes = flat bits 0-6
 _MAX_K = 8             # largest gate the CUDA kernel takes
-_MIN_N = 13            # the kernel's tile is 2^13 amplitudes
+# Largest U_row of apply_factored: JAX's k_hi <= 4 high bits plus the 5
+# sublane bits.
+_MAX_ROW_BITS = 9
 
 # Launches of each CUDA kernel, and calls of each plain version.
 fused_launches = 0
 swap_launches = 0
+factored_launches = 0
 fused_plain_calls = 0
 swap_plain_calls = 0
+factored_plain_calls = 0
 
 
 def reset_counts():
-    global fused_launches, swap_launches, fused_plain_calls, \
-        swap_plain_calls
-    fused_launches = swap_launches = 0
-    fused_plain_calls = swap_plain_calls = 0
+    global fused_launches, swap_launches, factored_launches, \
+        fused_plain_calls, swap_plain_calls, factored_plain_calls
+    fused_launches = swap_launches = factored_launches = 0
+    fused_plain_calls = swap_plain_calls = factored_plain_calls = 0
 
 
 def counts() -> dict:
     return {'fused_apply': fused_launches, 'swap_apply': swap_launches,
+            'factored_apply': factored_launches,
             'apply_fused_plain': fused_plain_calls,
-            'apply_swap_plain': swap_plain_calls}
+            'apply_swap_plain': swap_plain_calls,
+            'apply_factored_plain': factored_plain_calls}
 
 
 # -- host metadata (copied from pallas_fused.py) -----------------------
@@ -171,18 +182,23 @@ def _n_of(state: torch.Tensor) -> int:
         raise ValueError("state must be a contiguous 1-D float32 tensor")
     size = state.numel()
     n = size.bit_length() - 2
-    if size != 2 ** (n + 1) or n < _MIN_N:
-        raise ValueError(f"state must hold 2^(n+1) floats, n >= {_MIN_N}")
+    if n < 1 or size != 2 ** (n + 1):
+        raise ValueError("state must hold 2^(n+1) floats, n >= 1")
     return n
 
 
-def _check_bits(n, bits, victims=()):
+def _halves(state: torch.Tensor, n: int):
+    """The re and im halves of the container (views)."""
+    return state[:2 ** n], state[2 ** n:]
+
+
+def _check_bits(n, bits, victims=(), max_k=_MAX_K):
     allb = list(bits) + list(victims)
     if len(set(allb)) != len(allb) or any(not 0 <= b < n for b in allb):
         raise ValueError(f"bits {list(bits)} / victims {list(victims)} "
                          f"must be distinct and in [0, {n})")
-    if not 1 <= len(bits) <= _MAX_K:
-        raise ValueError(f"gates of 1..{_MAX_K} qubits only")
+    if not 1 <= len(bits) <= max_k:
+        raise ValueError(f"gates of 1..{max_k} qubits only")
 
 
 def _operand(U, k: int, device) -> torch.Tensor:
@@ -190,6 +206,16 @@ def _operand(U, k: int, device) -> torch.Tensor:
     if U.shape != (2 ** k, 2 ** k):
         raise ValueError(f"U must be {2 ** k}x{2 ** k}, got {U.shape}")
     return U.contiguous()
+
+
+def _kernel_device(t: torch.Tensor):
+    """True for a CUDA tensor (the kernel's), False for a CPU tensor (the
+    plain version's); raises for any other device."""
+    if t.device.type == 'cpu':
+        return False
+    if t.device.type != 'cuda':
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
 
 
 def _swap_pairs(bits, victims):
@@ -206,35 +232,51 @@ def _swap_pairs(bits, victims):
 
 # -- CUDA launch -------------------------------------------------------
 
-_ARGTYPES_SET = False
+_INT, _INT_P, _PTR = ctypes.c_int, ctypes.POINTER(ctypes.c_int), \
+    ctypes.c_void_p
 
 
-def _launch(state, U, n, bits, lane, victims):
-    global _ARGTYPES_SET
+def _c_function(source: str, name: str, argtypes):
+    """``name`` of the library built from ``csrc/<source>.cu``, with its
+    argument types declared (pointers and the stream as ``c_void_p``, so
+    that ctypes does not cut them to 32 bits)."""
     from hybridq_tpu_torch.simulation import _build
 
-    lib = _build.load('fused_apply')
-    fn = lib.hq_group_apply
-    if not _ARGTYPES_SET:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    fn = getattr(_build.load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _ARGTYPES_SET = True
-    if U.device != state.device:
-        raise ValueError("U and state must be on the same device")
-    k, kv = len(bits), len(victims)
-    gb = (ctypes.c_int * 8)(*bits)
-    ab = (ctypes.c_int * 2)(*lane)
-    vb = (ctypes.c_int * 2)(*victims)
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        err = fn(state.data_ptr(), U.data_ptr(), n, k, gb, kv, ab, vb,
-                 stream)
+    return fn
+
+
+def _ints(values, size):
+    return (ctypes.c_int * size)(*values)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_launch(err, what):
     if err != 0:
-        raise RuntimeError(f"fused_apply kernel launch failed: CUDA error "
-                           f"{err} (n={n}, bits={bits}, victims={victims})")
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _launch(re, im, U, n, bits, lane, victims):
+    """``hq_group_apply`` on the real parts ``re`` and imaginary parts
+    ``im`` (two tensors of ``2^n`` floats on one card)."""
+    # re, im, U, n, k, gbits, kv, abits, vbits, stream
+    fn = _c_function('fused_apply', 'hq_group_apply',
+                     [_PTR, _PTR, _PTR, _INT, _INT, _INT_P, _INT, _INT_P,
+                      _INT_P, _PTR])
+    if not U.device == re.device == im.device:
+        raise ValueError("U, re and im must be on the same device")
+    with torch.cuda.device(re.device):
+        err = fn(re.data_ptr(), im.data_ptr(), U.data_ptr(), n, len(bits),
+                 _ints(bits, _MAX_K), len(victims), _ints(lane, 2),
+                 _ints(victims, 2), _stream(re))
+    _check_launch(err, f"fused_apply (n={n}, bits={bits}, "
+                       f"victims={victims})")
 
 
 # -- wrappers ----------------------------------------------------------
@@ -249,12 +291,10 @@ def apply_fused(state: torch.Tensor, U, bits: Sequence[int]
     _check_bits(n, bits)
     if any(b < _LANE_BITS for b in bits):
         raise ValueError("apply_fused handles bits >= 7 only")
-    if state.device.type == 'cpu':
+    if not _kernel_device(state):
         return apply_fused_plain(state, U, bits)
-    if state.device.type != 'cuda':
-        raise ValueError(f"no kernel for device {state.device}")
     U = _operand(U, len(bits), state.device)
-    _launch(state, U, n, bits, [], [])
+    _launch(*_halves(state, n), U, n, bits, [], [])
     fused_launches += 1
     return state
 
@@ -268,13 +308,65 @@ def apply_swap(state: torch.Tensor, U, bits: Sequence[int],
     bits = [int(b) for b in bits]
     _check_bits(n, bits, victims)
     lane, victims = _swap_pairs(bits, victims)
-    if state.device.type == 'cpu':
+    if not _kernel_device(state):
         return apply_swap_plain(state, U, bits, victims)
-    if state.device.type != 'cuda':
-        raise ValueError(f"no kernel for device {state.device}")
     U = _operand(U, len(bits), state.device)
-    _launch(state, U, n, bits, lane, victims)
+    _launch(*_halves(state, n), U, n, bits, lane, victims)
     swap_launches += 1
+    return state
+
+
+def _factored_args(state, U_row, row_bits, U_lane, lane_bits):
+    n = _n_of(state)
+    row_bits = [int(b) for b in row_bits]
+    lane_bits = [int(b) for b in lane_bits]
+    _check_bits(n, row_bits + lane_bits,
+                max_k=_MAX_ROW_BITS + _LANE_BITS)
+    if n < _LANE_BITS:
+        raise ValueError(f"apply_factored needs n >= {_LANE_BITS}")
+    if any(b < _LANE_BITS for b in row_bits) or \
+            any(b >= _LANE_BITS for b in lane_bits):
+        raise ValueError("row_bits must be >= 7 and lane_bits < 7")
+    if not 1 <= len(lane_bits) <= _LANE_BITS:
+        raise ValueError("lane_bits must hold 1..7 bits")
+    if len(row_bits) > _MAX_ROW_BITS:
+        raise ValueError(f"U_row of at most {_MAX_ROW_BITS} "
+                         f"qubits, got {len(row_bits)}")
+    U_row = _operand(np.ones((1, 1)) if U_row is None else U_row,
+                     len(row_bits), state.device)
+    U_lane = _operand(U_lane, len(lane_bits), state.device)
+    if not row_bits:        # a 1x1 U_row is a scalar: fold it into U_lane
+        U_lane = U_lane * U_row[0, 0]
+    return n, U_row, row_bits, U_lane, lane_bits
+
+
+def apply_factored(state: torch.Tensor, U_row, row_bits: Sequence[int],
+                   U_lane, lane_bits: Sequence[int]) -> torch.Tensor:
+    """Apply ``U_row (x) U_lane`` to ``row_bits + lane_bits`` (MSB of each
+    factor first; ``row_bits`` >= 7, possibly empty with ``U_row`` None or
+    1x1; 1..7 ``lane_bits`` < 7) of ``state`` in place; returns
+    ``state``."""
+    global factored_launches
+    if not _kernel_device(state):
+        return apply_factored_plain(state, U_row, row_bits, U_lane,
+                                    lane_bits)
+    n, U_row, row_bits, U_lane, lane_bits = _factored_args(
+        state, U_row, row_bits, U_lane, lane_bits)
+    if state.data_ptr() % 16:
+        raise ValueError("apply_factored needs a 16-byte aligned state")
+    # re, im, n, U_row, kr, row_bits, U_lane, kl, lane_bits, stream
+    fn = _c_function('factored_apply', 'hq_factored_apply',
+                     [_PTR, _PTR, _INT, _PTR, _INT, _INT_P, _PTR, _INT,
+                      _INT_P, _PTR])
+    re, im = _halves(state, n)
+    with torch.cuda.device(state.device):
+        err = fn(re.data_ptr(), im.data_ptr(), n, U_row.data_ptr(),
+                 len(row_bits), _ints(row_bits, _MAX_ROW_BITS),
+                 U_lane.data_ptr(), len(lane_bits),
+                 _ints(lane_bits, _LANE_BITS), _stream(state))
+    _check_launch(err, f"factored_apply (n={n}, row_bits={row_bits}, "
+                       f"lane_bits={lane_bits})")
+    factored_launches += 1
     return state
 
 
@@ -303,12 +395,11 @@ def _group_index(n, bits, victims, device) -> torch.Tensor:
     return goff[:, None] | cols[None, :]
 
 
-def _plain(state, U, bits, lane, victims):
-    n = _n_of(state)
-    N = 2 ** n
-    re, im = state[:N], state[N:]
-    U = _operand(U, len(bits), state.device)
-    idx = _group_index(n, bits, victims, state.device)
+def _plain(re, im, n, U, bits, lane=(), victims=()):
+    """Gather, complex64 matmul and scatter on the real parts ``re`` and
+    imaginary parts ``im`` (``2^n`` floats each), in place."""
+    U = _operand(U, len(bits), re.device)
+    idx = _group_index(n, bits, victims, re.device)
     X = torch.complex(re[idx], im[idx])
     Y = torch.matmul(U, X)
     del X
@@ -317,7 +408,6 @@ def _plain(state, U, bits, lane, victims):
         idx ^= (d << a) | (d << v)
     re[idx] = Y.real
     im[idx] = Y.imag
-    return state
 
 
 def apply_fused_plain(state: torch.Tensor, U, bits: Sequence[int]
@@ -326,7 +416,9 @@ def apply_fused_plain(state: torch.Tensor, U, bits: Sequence[int]
     matmul, scatter)."""
     global fused_plain_calls
     fused_plain_calls += 1
-    return _plain(state, U, [int(b) for b in bits], [], [])
+    n = _n_of(state)
+    _plain(*_halves(state, n), n, U, [int(b) for b in bits])
+    return state
 
 
 def apply_swap_plain(state: torch.Tensor, U, bits: Sequence[int],
@@ -336,4 +428,22 @@ def apply_swap_plain(state: torch.Tensor, U, bits: Sequence[int],
     swap_plain_calls += 1
     bits = [int(b) for b in bits]
     lane, victims = _swap_pairs(bits, victims)
-    return _plain(state, U, bits, lane, victims)
+    n = _n_of(state)
+    _plain(*_halves(state, n), n, U, bits, lane, victims)
+    return state
+
+
+def apply_factored_plain(state: torch.Tensor, U_row, row_bits, U_lane,
+                         lane_bits) -> torch.Tensor:
+    """Plain PyTorch version of ``apply_factored``: the two factors one
+    after the other (they act on disjoint bits, so they commute), each a
+    gather, complex64 matmul and scatter; never their 2^(kr+kl) product."""
+    global factored_plain_calls
+    factored_plain_calls += 1
+    n, U_row, row_bits, U_lane, lane_bits = _factored_args(
+        state, U_row, row_bits, U_lane, lane_bits)
+    re, im = _halves(state, n)
+    _plain(re, im, n, U_lane, lane_bits)
+    if row_bits:
+        _plain(re, im, n, U_row, row_bits)
+    return state

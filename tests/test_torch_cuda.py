@@ -14,7 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from hybridq_tpu_torch.probes import fused_k4
 from hybridq_tpu_torch.simulation import fused_kernels as fk
+from hybridq_tpu_torch.simulation import row_kernels as rk
 from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
 
 ATOL = 1e-5
@@ -115,3 +117,70 @@ def test_cuda_evolver_matches_cpu_evolver(cuda):
     got = ev_c.gather(s_c).cpu()
     want = ev_h.gather(s_h)
     assert (got - want).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize('n, bits', [(8, [7]), (11, [10, 7]),
+                                     (12, [7, 11, 9, 8, 10]), (13, [12, 9])])
+def test_cuda_fused_below_one_tile(n, bits, cuda):
+    """Registers smaller than the kernel's 2^13-amplitude tile."""
+    rng = np.random.default_rng(n)
+    U = torch.as_tensor(_rand_u(len(bits), rng), dtype=torch.complex64,
+                        device=cuda)
+    st = _rand_state(n, rng, cuda)
+    a, b = st.clone(), st.clone()
+    fk.apply_fused(a, U, bits)
+    fk.apply_fused_plain(b, U, bits)
+    torch.cuda.synchronize()
+    assert (a - b).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize('n, L, positions', [
+    (11, 10, (0,)), (12, 10, (1, 0)), (14, 10, (1, 3, 0, 2)),
+    (20, 10, (9, 0, 7, 2, 5, 1, 8, 3)),
+])
+def test_cuda_gate_rows_matches_plain(n, L, positions, cuda):
+    rng = np.random.default_rng(n + len(positions))
+    U = _rand_u(len(positions), rng)
+    re = torch.from_numpy(rng.standard_normal(2**n).astype(np.float32))
+    im = torch.from_numpy(rng.standard_normal(2**n).astype(np.float32))
+    a = re.to(cuda), im.to(cuda)
+    b = re.to(cuda), im.to(cuda)
+    rk.reset_counts()
+    rk.apply_gate_rows(*a, U.real, U.imag, positions, n, L)
+    rk.apply_gate_rows_plain(*b, U.real, U.imag, positions, n, L)
+    torch.cuda.synchronize()
+    assert rk.counts() == {'apply_gate_rows': 1, 'apply_gate_rows_plain': 1}
+    for x, y in zip(a, b):
+        assert (x - y).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize('row_bits, lane_bits', [
+    ((19, 12, 7, 15, 9, 11), (0, 1, 2, 3, 4, 5, 6)),     # one launch
+    ((18, 17, 16, 15, 14, 13, 12), (3, 5)),              # two launches
+    (tuple(range(19, 10, -1)), tuple(range(6, -1, -1))),  # largest, (9, 7)
+])
+def test_cuda_factored_largest(row_bits, lane_bits, cuda):
+    rng = np.random.default_rng(len(row_bits))
+    Ur, Ul = _rand_u(len(row_bits), rng), _rand_u(len(lane_bits), rng)
+    st = _rand_state(20, rng, cuda)
+    a, b = st.clone(), st.clone()
+    fk.apply_factored(a, Ur, row_bits, Ul, lane_bits)
+    fk.apply_factored_plain(b, Ur, row_bits, Ul, lane_bits)
+    torch.cuda.synchronize()
+    assert (a - b).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize('n, bits', [(11, (10, 9, 8, 7)),
+                                     (22, (21, 16, 9, 14)),
+                                     (22, (7, 8, 20, 13))])
+def test_cuda_fused_k4_matches_plain(n, bits, cuda):
+    rng = np.random.default_rng(n)
+    U = torch.as_tensor(_rand_u(4, rng), dtype=torch.complex64, device=cuda)
+    st = _rand_state(n, rng, cuda)
+    a, b = st.clone(), st.clone()
+    fused_k4.reset_counts()
+    fused_k4.apply_fused_k4(a, U, bits)
+    fk.apply_fused_plain(b, U, bits)
+    torch.cuda.synchronize()
+    assert fused_k4.counts() == {'fused_k4_apply': 1}
+    assert (a - b).abs().max().item() <= ATOL

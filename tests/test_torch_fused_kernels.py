@@ -113,7 +113,8 @@ def test_wrappers_count_plain_calls_on_cpu(seed):
     fk.apply_fused(st, _rand_u(2, rng), [8, 13])
     fk.apply_swap(st, _rand_u(2, rng), [3, 9], [12])
     assert fk.counts() == {'fused_apply': 0, 'swap_apply': 0,
-                           'apply_fused_plain': 1, 'apply_swap_plain': 1}
+                           'factored_apply': 0, 'apply_fused_plain': 1,
+                           'apply_swap_plain': 1, 'apply_factored_plain': 0}
 
 
 @pytest.mark.parametrize('call, match', [
