@@ -42,6 +42,21 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              at most 1.1x the unpaired one.  Each kernel is then replayed
              at the most frequent gate size the main path gave it and
              held against its plain version.
+  probes     the card's counterparts of the bandwidth and dot probes
+             (``scripts/probe_pallas_bw.py``, ``probe_pallas_gather.py``)
+             at the scripts' 2 GiB of f32: first ``probes.bw.main()`` and
+             ``probes.gather.main()``, the entry points a user runs, with
+             launch counts zeroed just before and read just after (every
+             kernel must launch); then every variant of both tables held
+             against its plain version (``2 * x``, or ``x`` rounded to bf16
+             for the matmul variant: max|d| must be 0) and timed beside
+             its bound, its plain version and one PyTorch call, kernel
+             and library writing the same tensor (``torch.mul(x, 2,
+             out=y)`` beside ``scale(x, ..., out=y)``, ``y.mul_(2)`` in
+             place); and the TF32 and 3xTF32 dots on the scripts' inputs
+             against float64 (rel-err in [1e-5, 1e-2] for one TF32 pass:
+             f32 accuracy there would mean no tensor cores; <= 1e-5 for
+             3xTF32), beside ``torch.matmul``.  Runs after ``paths``.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``name, power.limit``
 and, as the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -82,16 +97,24 @@ FUSED_K4_CASES = [(22, 16, 9, 14), (27, 20, 14, 12)]
 # the case of each path that the summary line reports
 SUMMARY_CASE = {'factored_apply': 2, 'apply_gate_rows': 2,
                 'fused_k4_apply': 0}
+# the probe variant that the summary line reports for each streaming kernel
+# (the dots have one case each); gather: the main path's 2 KB runs
+PROBE_SUMMARY_CASE = {'stream_scale': 'B  auto S=512 (2MB)',
+                      'stream_scale_inplace': 'B2 auto aliased S=512',
+                      'stream_scale_pipelined': 'C  manual S=256 x2buf',
+                      'gather_scale': 'run 2KB   (4 sub)  blk 1024'}
+PROBE_REPS = 10            # timed repetitions of each probe kernel
 TOL = 1e-5                 # max|d|/rms, kernel against plain (f32 sums)
 # max|d| / max|amp| of simulate against the complex128 oracle: f32
 # evolution gives 6e-7 to 8e-7 at these depths on the card and on the CPU.
 PARITY_TOL = 3e-6
 PAIRED_SLACK = 1.1         # paired pass time over unpaired, at most
 NORM_TOL = 1e-4
-# Published peaks (NVIDIA data sheets): bytes/s, fp32 FLOP/s outside the
-# tensor cores.
-_PEAKS = {'H100 PCIe': (2.0e12, 51.2e12), 'H200': (4.8e12, 67e12),
-          'H100': (3.35e12, 67e12)}
+# Published peaks (NVIDIA data sheets, dense): bytes/s, fp32 FLOP/s outside
+# the tensor cores, TF32 FLOP/s on the tensor cores.
+_PEAKS = {'H100 PCIe': (2.0e12, 51.2e12, 378e12),
+          'H200': (4.8e12, 67e12, 495e12),
+          'H100': (3.35e12, 67e12, 495e12)}
 # wrapper -> (source in the repo, the TPU kernel it replaces)
 KERNEL_INFO = {
     'fused_apply': ('hybridq_tpu_torch/csrc/fused_apply.cu',
@@ -104,6 +127,18 @@ KERNEL_INFO = {
                        'hybridq_tpu/simulation/pallas_fused.py:633'),
     'fused_k4_apply': ('hybridq_tpu_torch/csrc/fused_k4.cu',
                        'scripts/probe_fused_k4.py:24'),
+    'stream_scale': ('hybridq_tpu_torch/csrc/stream_scale.cu',
+                     'scripts/probe_pallas_bw.py:42'),
+    'stream_scale_inplace': ('hybridq_tpu_torch/csrc/stream_scale.cu',
+                             'scripts/probe_pallas_bw.py:60'),
+    'stream_scale_pipelined': ('hybridq_tpu_torch/csrc/stream_scale.cu',
+                               'scripts/probe_pallas_bw.py:79'),
+    'dot_tf32': ('hybridq_tpu_torch/csrc/dot_probe.cu',
+                 'scripts/probe_pallas_bw.py:202'),
+    'gather_scale': ('hybridq_tpu_torch/csrc/gather_runs.cu',
+                     'scripts/probe_pallas_gather.py:32'),
+    'dot_3xtf32': ('hybridq_tpu_torch/csrc/dot_probe.cu',
+                   'scripts/probe_pallas_gather.py:233'),
 }
 
 
@@ -125,10 +160,9 @@ def check(cond, msg):
 
 
 def card_power():
-    return subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    """The card's ``name, power.limit`` as nvidia-smi prints them."""
+    from hybridq_tpu_torch.probes.bw import card_line
+    return card_line()
 
 
 def peaks(name):
@@ -142,7 +176,7 @@ def bound(n, k, name, flops_needed=None):
     """Least time (ms) for one gate pass: the whole state read and
     written once, or ``flops_needed`` fp32 flops (default 8 * 2^(n+k),
     a k-qubit gate)."""
-    bw, flops = peaks(name)
+    bw, flops, _ = peaks(name)
     t_bytes = 2 * 2 ** (n + 1) * 4 / bw
     t_ops = (8 * 2 ** (n + k) if flops_needed is None
              else flops_needed) / flops
@@ -151,18 +185,9 @@ def bound(n, k, name, flops_needed=None):
 
 
 def time_ms(fn, reps):
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    """ms of one ``fn()`` between CUDA events (``probes.bw.time_ms``)."""
+    from hybridq_tpu_torch.probes.bw import time_ms as timed
+    return timed(fn, reps)
 
 
 def rand_unitary(k, rng):
@@ -281,7 +306,8 @@ def phase_build(out):
     t0 = time.perf_counter()
     libs = _build.build_all()
     dt = time.perf_counter() - t0
-    for src in ('fused_apply', 'factored_apply', 'fused_k4'):
+    for src in ('fused_apply', 'factored_apply', 'fused_k4', 'stream_scale',
+                'dot_probe', 'gather_runs'):
         check(src in libs, f"{src} was not built")
     nvcc = subprocess.run([_build.nvcc_path(), '--version'],
                           capture_output=True, text=True).stdout
@@ -578,6 +604,150 @@ def phase_paths(out, name):
     return summary
 
 
+def hold_exact(x, kern, plain, kern_ms, library):
+    """``kern(x)`` against ``plain(x)`` (max|d| must be 0), then the
+    kernel, plain version and ``library`` timed on the same input."""
+    import torch
+
+    want = plain(x)
+    got = kern(x)
+    torch.cuda.synchronize()
+    d = (got - want).abs_().max().item()
+    del got, want
+    r = {'max_abs_err': d, 'ms': time_ms(kern_ms, PROBE_REPS),
+         'plain_ms': time_ms(lambda: plain(x), PROBE_REPS),
+         'library_ms': time_ms(library, PROBE_REPS)}
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_probes(out, name):
+    """See the module docstring; returns the summary entries of the six
+    probe kernels."""
+    import torch
+    from hybridq_tpu_torch.probes import bw, gather
+
+    card = card_power()
+    peak_bw, _, peak_tf32 = peaks(name)
+    # the path: both entry points, launch counts zeroed just before and
+    # read just after
+    bw.reset_counts()
+    gather.reset_counts()
+    check(bw.main() == 0, "probes: probes.bw failed")
+    check(gather.main() == 0, "probes: probes.gather failed")
+    torch.cuda.synchronize()
+    launches = {**bw.counts(), **gather.counts()}
+    emit({'phase': 'probes', 'path_launches': launches, 'card': card}, out)
+    for key, count in launches.items():
+        check(count > 0, f"probes: {key} was not launched")
+
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(SEED)
+    rows = {}
+
+    def record(kname, case, r, bound_ms, bound_by, nbytes=None):
+        r.update({'bound_ms': bound_ms, 'bound_by': bound_by})
+        if nbytes is not None:
+            r['gbs'] = nbytes / (r['ms'] * 1e-3) / 1e9
+        rows.setdefault(kname, []).append((case, r))
+        emit({'phase': 'probes', 'kernel': kname, 'case': case, **r,
+              'card': card}, out)
+
+    # rows 6-8: 2 * x over [2^19, 1024] f32, out of place or in place
+    nbytes = 2 * bw.NBYTES
+    t_bytes = nbytes / peak_bw * 1e3
+    kname_of = {'auto': 'stream_scale', 'aliased': 'stream_scale_inplace',
+                'manual': 'stream_scale_pipelined'}
+    x = torch.randn(bw.R, bw.C, device='cuda', generator=gen)
+    y = x.clone()
+    for v in bw.VARIANTS:
+        if v.kind == 'library':
+            continue
+        # timed as the library call is: in place on y, or from x into y
+        inplace = v.kind == 'aliased'
+        r = hold_exact(
+            x, lambda t: bw.run_variant(v, t.clone() if inplace else t),
+            bw.scale_plain,
+            (lambda: bw.run_variant(v, y)) if inplace
+            else (lambda: bw.run_variant(v, x, out=y)),
+            (lambda: y.mul_(2)) if inplace
+            else (lambda: torch.mul(x, 2, out=y)))
+        r['card_mapping'] = bw.describe(v)
+        record(kname_of[v.kind], v.name, r, t_bytes, 'bytes', nbytes)
+        check(r['max_abs_err'] == 0, f"probes: {v.name}: max|d| "
+              f"{r['max_abs_err']} against 2 * x")
+        y.copy_(x)                      # keep the timed values finite
+    del x, y
+    torch.cuda.empty_cache()
+
+    # row 10: gathered runs over [2^22, 128] f32, in place
+    nbytes = 2 * gather.NBYTES
+    t_bytes = nbytes / peak_bw * 1e3
+    x = torch.randn(gather.SUB, gather.LANE, device='cuda', generator=gen)
+    y = x.clone()
+    for v in gather.VARIANTS:
+        r = hold_exact(
+            x, lambda t: gather.run_variant(v, t.clone()),
+            lambda t: gather.gather_scale_plain(t, v.matmul),
+            lambda: gather.run_variant(v, y), lambda: y.mul_(2))
+        r['card_mapping'] = gather.describe(v)
+        record('gather_scale', v.name, r, t_bytes, 'bytes', nbytes)
+        check(r['max_abs_err'] == 0, f"probes: {v.name}: max|d| "
+              f"{r['max_abs_err']} against its plain version")
+        y.copy_(x)                      # keep the timed values finite
+    del x, y
+    torch.cuda.empty_cache()
+
+    # rows 9 and 11: the 128^3 dot against float64, on the script's inputs
+    a, b = bw.dot_inputs()
+    ad, bd = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    n = bw.DOT_N
+    t_ops = 2 * n ** 3 / peak_tf32 * 1e3
+    t_bytes = 3 * n * n * 4 / peak_bw * 1e3
+    dot_bound = (max(t_ops, t_bytes),
+                 'bytes' if t_bytes >= t_ops else 'operations')
+    bands = {'tf32': (1e-5, 1e-2), '3xtf32': (0.0, 1e-5)}
+    dot_reps = 100
+    for prec, (lo, hi) in bands.items():
+        got = bw.dot(ad, bd, prec)
+        want = bw.dot_plain(ad, bd)
+        torch.cuda.synchronize()
+        err = bw.rel_err(got, a, b)
+        lib = bw.library_matmul(ad, bd, tf32=prec == 'tf32')
+        r = {'max_abs_err': (got - want).abs().max().item(),
+             'rel_err_vs_f64': err,
+             'plain_rel_err_vs_f64': bw.rel_err(want, a, b),
+             'library_rel_err_vs_f64': bw.rel_err(lib, a, b),
+             'ms': time_ms(lambda: bw.dot(ad, bd, prec), dot_reps),
+             'plain_ms': time_ms(lambda: bw.dot_plain(ad, bd), dot_reps),
+             'library_ms': time_ms(
+                 lambda: bw.library_matmul(ad, bd, tf32=prec == 'tf32'),
+                 dot_reps)}
+        record(f'dot_{prec}', prec, r, *dot_bound)
+        check(lo <= err <= hi, f"probes: {prec} dot rel-err {err:.3g} "
+              f"outside [{lo}, {hi}]")
+
+    emit({'phase': 'probes', 'ok': True, 'card': card,
+          'bandwidth_gbs': {case: r['gbs'] for kname, rs in rows.items()
+                            if 'gbs' in rs[0][1] for case, r in rs}}, out)
+    summary = []
+    for kname in ('stream_scale', 'stream_scale_inplace',
+                  'stream_scale_pipelined', 'dot_tf32', 'gather_scale',
+                  'dot_3xtf32'):
+        case, r = next((c, r) for c, r in rows[kname]
+                       if c == PROBE_SUMMARY_CASE.get(kname, c))
+        src, replaces = KERNEL_INFO[kname]
+        summary.append({'name': kname, 'route': 'cuda', 'source': src,
+                        'replaces': replaces, 'launches': launches[kname],
+                        'max_abs_err': max(q['max_abs_err']
+                                           for _, q in rows[kname]),
+                        'ms': r['ms'], 'plain_ms': r['plain_ms'],
+                        'bound_ms': r['bound_ms'],
+                        'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms']})
+    return summary
+
+
 def bench_workload(n, k, n_gates, rng, min_bit=3):
     """``bench.py``'s workload: random k-qubit unitaries on qubits whose
     flat bits avoid 0..min_bit-1."""
@@ -762,7 +932,8 @@ def main(argv=None):
         phase_kernels(out, name)
         phase_parity(out)
         paths = phase_paths(out, name)
-        emit({'kernels': phase_main_path(out, name) + paths}, out)
+        probes = phase_probes(out, name)
+        emit({'kernels': phase_main_path(out, name) + paths + probes}, out)
         print(card_power(), flush=True)
         # count: the one card the run used (device 0)
         print(json.dumps({'ok': True, 'device': {

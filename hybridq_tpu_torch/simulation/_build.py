@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface; ``nvcc`` compiles it into
 ``hybridq_tpu_torch/_build/lib<name>-<hash>.so`` (the hash covers the
-source and the flags, so an edited source is rebuilt) and ``ctypes`` loads
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header is rebuilt) and ``ctypes`` loads
 it.  All sources are compiled at once, one ``nvcc`` process each.  A build
 failure raises: there is no fallback.
 """
@@ -41,7 +42,8 @@ def nvcc_path() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + ' '.join(FLAGS).encode())
+    headers = b''.join(p.read_bytes() for p in sorted(CSRC.glob('*.cuh')))
+    h = hashlib.sha256(src.read_bytes() + headers + ' '.join(FLAGS).encode())
     return BUILD_DIR / f'lib{src.stem}-{h.hexdigest()[:16]}.so'
 
 
@@ -84,5 +86,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = build_all().get(name)
     if lib is None:
         raise RuntimeError(f"no CUDA source {CSRC / (name + '.cu')}: the "
-                           "package was installed without its csrc/*.cu")
+                           "package was installed without its csrc/*.cu "
+                           "and csrc/*.cuh")
     return lib

@@ -7,14 +7,17 @@ on the card it runs without the JAX test setup:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerance: max|d| <= 1e-5 on a unit-norm state -- f32 sums taken in
-another order than ``torch.matmul``'s.
+another order than ``torch.matmul``'s.  The probes' copies and gathers are
+exact (doubling and bf16 rounding are exact); their dots are held against
+float64: one TF32 pass within [1e-5, 1e-2] (f32 accuracy would mean the
+tensor cores were not used), 3xTF32 within 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from hybridq_tpu_torch.probes import fused_k4
+from hybridq_tpu_torch.probes import bw, fused_k4, gather
 from hybridq_tpu_torch.simulation import fused_kernels as fk
 from hybridq_tpu_torch.simulation import row_kernels as rk
 from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
@@ -184,3 +187,62 @@ def test_cuda_fused_k4_matches_plain(n, bits, cuda):
     torch.cuda.synchronize()
     assert fused_k4.counts() == {'fused_k4_apply': 1}
     assert (a - b).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize('kind, rows, cols, tile, nbuf', [
+    ('auto', 64, 1024, 16, 0), ('auto', 100, 256, 24, 0),
+    ('aliased', 64, 1024, 16, 0), ('aliased', 100, 256, 7, 0),
+    ('manual', 64, 1024, 4, 2), ('manual', 100, 256, 8, 2),
+    ('manual', 97, 256, 4, 4),
+])
+def test_cuda_stream_scale_matches_plain(kind, rows, cols, tile, nbuf, cuda):
+    x = torch.randn(rows, cols, generator=torch.Generator().manual_seed(rows))
+    x = x.to(cuda)
+    v = bw.Variant('test', kind, tile, tile, nbuf)
+    bw.reset_counts()
+    got = bw.run_variant(v, x.clone())
+    torch.cuda.synchronize()
+    key = {'auto': 'stream_scale', 'aliased': 'stream_scale_inplace',
+           'manual': 'stream_scale_pipelined'}[kind]
+    assert bw.counts()[key] == 1
+    assert torch.equal(got, bw.scale_plain(x))
+
+
+@pytest.mark.parametrize('kind, rows', [('auto', 16), ('manual', 4)])
+def test_cuda_stream_scale_into_out(kind, rows, cuda):
+    x = torch.randn(64, 1024, generator=torch.Generator().manual_seed(3))
+    x = x.to(cuda)
+    out = torch.full_like(x, float('nan'))
+    v = bw.Variant('test', kind, rows, rows, 2)
+    assert bw.run_variant(v, x, out=out) is out
+    torch.cuda.synchronize()
+    assert torch.equal(out, bw.scale_plain(x))
+
+
+@pytest.mark.parametrize('precision, lo, hi', [('tf32', 1e-5, 1e-2),
+                                               ('3xtf32', 0.0, 1e-5)])
+def test_cuda_dot_accuracy(precision, lo, hi, cuda):
+    a, b = bw.dot_inputs()
+    bw.reset_counts()
+    got = bw.dot(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda),
+                 precision)
+    torch.cuda.synchronize()
+    assert bw.counts()[f'dot_{precision}'] == 1
+    assert lo <= bw.rel_err(got, a, b) <= hi
+
+
+@pytest.mark.parametrize('rows, run, blk, matmul, nbuf', [
+    (2048, 1, 128, False, 2), (2048, 4, 256, False, 2),
+    (2048, 128, 128, False, 2), (2048, 512, 1024, False, 2),
+    (2048, 32, 128, True, 2), (2048, 8, 128, False, 4),
+    (4096, 2048, 4096, True, 2),
+])
+def test_cuda_gather_matches_plain(rows, run, blk, matmul, nbuf, cuda):
+    x = torch.randn(rows, 128, generator=torch.Generator().manual_seed(run))
+    x = x.to(cuda)
+    got = x.clone()
+    gather.reset_counts()
+    gather.gather_scale_(got, run, blk, matmul, nbuf)
+    torch.cuda.synchronize()
+    assert gather.counts() == {'gather_scale': 1}
+    assert torch.equal(got, gather.gather_scale_plain(x, matmul))

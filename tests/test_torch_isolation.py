@@ -1,11 +1,14 @@
 """The port stands alone: ``hybridq_tpu_torch`` imports neither ``jax`` nor
-``hybridq_tpu``, and its entry point runs on the card unless the caller
-asks for the CPU."""
+``hybridq_tpu``, its entry point runs on the card unless the caller asks
+for the CPU, and an installed copy ships every CUDA file its build reads."""
 
 import ast
+import fnmatch
 import os
+import re
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import numpy as np
@@ -26,7 +29,8 @@ def test_no_forbidden_imports_in_source():
     lazy imports included."""
     offenders = []
     files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
-    assert PKG / 'probes' / 'fused_k4.py' in files
+    for name in ('fused_k4', 'bw', 'gather'):
+        assert PKG / 'probes' / f'{name}.py' in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -45,6 +49,7 @@ def test_import_leaves_jax_unloaded():
             "hybridq_tpu_torch.simulation.fused_evolver, "
             "hybridq_tpu_torch.simulation.row_kernels, "
             "hybridq_tpu_torch.probes.fused_k4, "
+            "hybridq_tpu_torch.probes.bw, hybridq_tpu_torch.probes.gather, "
             "hybridq_tpu_torch.simulation._build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
@@ -52,6 +57,28 @@ def test_import_leaves_jax_unloaded():
     r = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
                        env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, (r.stdout, r.stderr)
+
+
+def test_package_data_ships_every_cuda_source_and_header():
+    """An installed copy builds from what ``package-data`` ships: every
+    ``csrc`` file and every ``#include "..."`` of a source must match one
+    of its globs, or nvcc fails there though it passes in the checkout."""
+    with open(ROOT / 'pyproject.toml', 'rb') as f:
+        globs = tomllib.load(f)['tool']['setuptools']['package-data'][
+            'hybridq_tpu_torch']
+    csrc = PKG / 'csrc'
+    files = sorted(p for p in csrc.iterdir() if p.suffix in ('.cu', '.cuh'))
+    assert {p.suffix for p in files} == {'.cu', '.cuh'}
+    for path in files:
+        rel = path.relative_to(PKG).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                              path.read_text(), re.M):
+            target = (csrc / inc).resolve()
+            assert target.exists(), (path.name, inc)
+            rel = target.relative_to(PKG).as_posix()
+            assert any(fnmatch.fnmatch(rel, g) for g in globs), \
+                (path.name, inc, globs)
 
 
 def test_simulate_needs_a_card_unless_told(monkeypatch):
