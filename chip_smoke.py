@@ -6,7 +6,9 @@
 
 Phases, each printing one JSON line (a failing phase exits non-zero):
 
-  build      compile ``hybridq_tpu_torch/csrc/*.cu`` from the checkout;
+  build      compile ``hybridq_tpu_torch/csrc/*.cu`` from the checkout and
+             print each kernel's registers and spills as ptxas reports
+             them; every ``column_apply_kernel<K>`` must spill nothing;
   kernels    at n = 28, hold every routing class of ``fused_apply`` and
              ``swap_apply``, and both kernels at gate sizes k = 1..8,
              against the plain PyTorch version (max|d|/rms <= 1e-5) and
@@ -67,6 +69,7 @@ prints no result.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -311,12 +314,41 @@ def phase_build(out):
         check(src in libs, f"{src} was not built")
     nvcc = subprocess.run([_build.nvcc_path(), '--version'],
                           capture_output=True, text=True).stdout
-    ptxas = [ln.strip() for log in _build.LOGS.values()
-             for ln in log.splitlines() if 'Used' in ln or 'spill' in ln]
+    ptxas = ptxas_entries(_build.LOGS)
     emit({'phase': 'build', 'ok': True, 'seconds': dt,
           'torch': torch.__version__, 'torch_cuda': torch.version.cuda,
           'nvcc': nvcc.strip().splitlines()[-1],
           'card': card_power(), 'ptxas': ptxas}, out)
+    column = {e: r for e, r in ptxas.items() if 'column_apply_kernel' in e}
+    check(len(column) == 5, f"build: {len(column)} column_apply_kernel "
+          f"instantiations in the ptxas output, not 5")
+    for entry, r in column.items():
+        check(r['spill_stores'] == r['spill_loads'] == 0,
+              f"build: {entry} spills: {r}")
+
+
+def ptxas_entries(logs):
+    """``{mangled kernel name: {'registers', 'spill_stores',
+    'spill_loads'}}`` from the ``-Xptxas=-v`` output of each source."""
+    entries, name = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name = m.group(1)
+                entries[name] = {}
+            m = re.search(r'Function properties for (\w+)', ln)
+            if m:               # a device function's own lines follow
+                name = m.group(1) if m.group(1) in entries else None
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', ln)
+            if m and name:
+                entries[name].update(spill_stores=int(m.group(1)),
+                                     spill_loads=int(m.group(2)))
+            m = re.search(r'Used (\d+) registers', ln)
+            if m and name:
+                entries[name]['registers'] = int(m.group(1))
+    return entries
 
 
 def phase_kernels(out, name):

@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface; ``nvcc`` compiles it into
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
 source or header is rebuilt) and ``ctypes`` loads
 it.  All sources are compiled at once, one ``nvcc`` process each.  A build
-failure raises: there is no fallback.
+failure raises: there is no fallback.  Each library's compiler output
+(``-Xptxas=-v``: registers and spills per kernel) is kept beside it as
+``lib<name>-<hash>.log`` and is in ``LOGS`` whether this process built the
+library or found it built.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
          '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v']
 
 _LIBS: dict = {}
-LOGS: dict = {}          # source name -> compiler output of the last build
+LOGS: dict = {}          # source name -> compiler output of its library
 _LOCK = threading.Lock()
 
 
@@ -48,8 +51,9 @@ def _target(src: Path) -> Path:
 
 
 def build_all() -> dict:
-    """Compile every ``csrc/*.cu`` not yet built, all in parallel, and
-    load them; returns ``{name: ctypes.CDLL}``."""
+    """Compile every ``csrc/*.cu`` not yet built (no library or no log
+    beside it), all in parallel, and load them; returns
+    ``{name: ctypes.CDLL}``."""
     with _LOCK:
         srcs = sorted(CSRC.glob('*.cu'))
         todo = [s for s in srcs if s.stem not in _LIBS]
@@ -57,7 +61,9 @@ def build_all() -> dict:
         procs = []
         for src in todo:
             out = _target(src)
-            if out.exists():
+            log = out.with_suffix('.log')
+            if out.exists() and log.exists():
+                LOGS[src.stem] = log.read_text()
                 continue
             tmp = out.with_suffix(f'.{os.getpid()}.tmp')
             cmd = [nvcc_path(), *FLAGS, '-o', str(tmp), str(src)]
@@ -71,6 +77,7 @@ def build_all() -> dict:
             if p.returncode != 0:
                 failed.append(f"{src.name}:\n{log}")
             else:
+                out.with_suffix('.log').write_text(log)
                 os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))

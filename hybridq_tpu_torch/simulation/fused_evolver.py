@@ -480,15 +480,17 @@ class FusedEvolver:
 #   _STEP_MS                host time of one step, which no n scales.
 # Measured by chip_smoke.py's `kernels` phase (kernel ms at n = 28; the
 # host time of a memoized step at n = 16) on an NVIDIA H100 80GB HBM3 at
-# a 700 W power limit.
+# a 700 W power limit, in the run whose `main_path` PERF.md section 5
+# reports: csrc/fused_apply.cu's column_apply_kernel for k <= 5, its
+# group_apply_kernel for k = 6..8.
 _COST_N = 28
-_STEP_MS = 0.0324
-_FUSED_COST = {1: 3.191, 2: 3.49, 3: 3.961, 4: 4.01, 5: 5.859, 6: 8.535,
-               7: 18.728, 8: 27.04}
-_SWAP_COST = {(1, 1): 4.228, (2, 1): 4.33, (3, 1): 5.021, (4, 1): 5.032,
-              (5, 1): 6.593, (6, 1): 9.13, (7, 1): 19.452, (8, 1): 27.853,
-              (2, 2): 4.945, (3, 2): 5.985, (4, 2): 5.619, (5, 2): 6.901,
-              (6, 2): 9.284, (7, 2): 20.152, (8, 2): 28.218}
+_STEP_MS = 0.0685
+_FUSED_COST = {1: 1.446, 2: 1.512, 3: 1.496, 4: 1.527, 5: 1.882, 6: 7.364,
+               7: 15.708, 8: 27.353}
+_SWAP_COST = {(1, 1): 1.825, (2, 1): 1.502, (3, 1): 1.536, (4, 1): 1.535,
+              (5, 1): 2.0, (6, 1): 7.489, (7, 1): 15.732, (8, 1): 27.553,
+              (2, 2): 1.669, (3, 2): 1.542, (4, 2): 1.554, (5, 2): 2.189,
+              (6, 2): 7.552, (7, 2): 16.043, (8, 2): 27.919}
 _PARK_COST = 2.555
 
 

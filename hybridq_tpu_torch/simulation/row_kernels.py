@@ -5,8 +5,8 @@ state is two flat f32 tensors of ``2^n`` floats, real and imaginary parts,
 viewed as rows of ``2^L`` amplitudes; a k-qubit gate acts on bits of the
 row index.  Row bit ``p`` is flat bit ``p + L``.
 
-``apply_gate_rows`` runs the engine's CUDA kernel (``csrc/fused_apply.cu``,
-``group_apply_kernel``) on the two tensors; a CPU tensor goes to
+``apply_gate_rows`` runs the engine's CUDA kernels (``csrc/fused_apply.cu``,
+``hq_group_apply``) on the two tensors; a CPU tensor goes to
 ``apply_gate_rows_plain``.  The TPU kernel's ``kron(U, I(8*RL))`` operator
 and run-length DMAs are not carried over: the kernel takes ``U`` itself.
 

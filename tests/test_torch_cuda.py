@@ -87,17 +87,43 @@ def test_cuda_kernel_matches_plain(kind, cls, cuda):
     assert (a - b).abs().max().item() <= ATOL
 
 
-@pytest.mark.parametrize('k', range(1, 9))
-def test_cuda_fused_every_gate_size(k, cuda):
-    rng = np.random.default_rng(k)
+def _hold_group(n, bits, lane, victims, rng, device):
+    """``hq_group_apply`` through ``fused_kernels._launch`` (any gate and
+    victim positions, which ``apply_swap``'s lane/victim checks do not
+    take below n = 13) against ``fused_kernels._plain``."""
+    U = torch.as_tensor(_rand_u(len(bits), rng), dtype=torch.complex64,
+                        device=device)
+    st = _rand_state(n, rng, device)
+    a, b = st.clone(), st.clone()
+    fk._launch(*fk._halves(a, n), U, n, bits, lane, victims)
+    fk._plain(*fk._halves(b, n), n, U, bits, lane, victims)
+    torch.cuda.synchronize()
+    assert (a - b).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize('k, kv', [(k, kv) for k in range(1, 9)
+                                   for kv in range(min(k, 2) + 1)])
+def test_cuda_fused_every_gate_size(k, kv, cuda):
+    """Every gate size at n = 20, through ``apply_fused`` (kv = 0, bits
+    >= 7) or ``apply_swap`` (kv lane bits, victims >= 12)."""
+    rng = np.random.default_rng(10 * k + kv)
     n = 20
-    bits = [int(b) for b in rng.choice(range(7, n), k, replace=False)]
+    victims = [int(v) for v in rng.choice(range(12, n), kv, replace=False)]
+    bits = [int(b) for b in rng.choice(7, kv, replace=False)] + \
+        [int(b) for b in rng.choice([b for b in range(7, n)
+                                     if b not in victims], k - kv,
+                                    replace=False)]
+    rng.shuffle(bits)
     U = torch.as_tensor(_rand_u(k, rng), dtype=torch.complex64,
                         device=cuda)
     st = _rand_state(n, rng, cuda)
     a, b = st.clone(), st.clone()
-    fk.apply_fused(a, U, bits)
-    fk.apply_fused_plain(b, U, bits)
+    if kv:
+        fk.apply_swap(a, U, bits, victims)
+        fk.apply_swap_plain(b, U, bits, victims)
+    else:
+        fk.apply_fused(a, U, bits)
+        fk.apply_fused_plain(b, U, bits)
     torch.cuda.synchronize()
     assert (a - b).abs().max().item() <= ATOL
 
@@ -122,11 +148,25 @@ def test_cuda_evolver_matches_cpu_evolver(cuda):
     assert (got - want).abs().max().item() <= ATOL
 
 
-@pytest.mark.parametrize('n, bits', [(8, [7]), (11, [10, 7]),
-                                     (12, [7, 11, 9, 8, 10]), (13, [12, 9])])
-def test_cuda_fused_below_one_tile(n, bits, cuda):
-    """Registers smaller than the kernel's 2^13-amplitude tile."""
-    rng = np.random.default_rng(n)
+@pytest.mark.parametrize('n, bits, kv', [
+    (8, [7], 0), (11, [10, 7], 0), (12, [7, 11, 9, 8, 10], 0),
+    (13, [12, 9], 0),
+] + [(n, k, kv) for k in range(1, 6) for kv in range(min(k, 2) + 1)
+     for n in sorted({k + kv, 11})])
+def test_cuda_fused_below_one_tile(n, bits, kv, cuda):
+    """Registers smaller than a block's columns: the fixed bit sets through
+    ``apply_fused``, then k = 1..5 gate bits (``bits`` a count: random
+    positions, bits 0-2 included) with kv of them exchanged with victims,
+    at n = k + kv (one column) and n = 11."""
+    rng = np.random.default_rng([n, kv, bits if isinstance(bits, int)
+                                 else len(bits)])
+    if isinstance(bits, int):
+        allb = [int(b) for b in rng.permutation(n)[:bits + kv]]
+        bits, victims = allb[:len(allb) - kv], allb[len(allb) - kv:]
+        lane = sorted((int(b) for b in rng.choice(bits, kv, replace=False)),
+                      reverse=True)
+        _hold_group(n, bits, lane, victims, rng, cuda)
+        return
     U = torch.as_tensor(_rand_u(len(bits), rng), dtype=torch.complex64,
                         device=cuda)
     st = _rand_state(n, rng, cuda)
@@ -140,6 +180,7 @@ def test_cuda_fused_below_one_tile(n, bits, cuda):
 @pytest.mark.parametrize('n, L, positions', [
     (11, 10, (0,)), (12, 10, (1, 0)), (14, 10, (1, 3, 0, 2)),
     (20, 10, (9, 0, 7, 2, 5, 1, 8, 3)),
+    (9, 0, (0, 2, 1)), (10, 0, (4, 0, 3, 1, 2)), (20, 0, (0, 1, 2, 3)),
 ])
 def test_cuda_gate_rows_matches_plain(n, L, positions, cuda):
     rng = np.random.default_rng(n + len(positions))
