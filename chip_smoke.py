@@ -8,14 +8,18 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
 
   build      compile ``hybridq_tpu_torch/csrc/*.cu`` from the checkout and
              print each kernel's registers and spills as ptxas reports
-             them; every ``column_apply_kernel<K>`` must spill nothing;
+             them; every ``column_apply_kernel<K>`` (k = 1..5) and
+             ``group_apply_kernel<K>`` (k = 6..8) must spill nothing;
   kernels    at n = 28, hold every routing class of ``fused_apply`` and
              ``swap_apply``, and both kernels at gate sizes k = 1..8,
              against the plain PyTorch version (max|d|/rms <= 1e-5) and
              time kernel, plain version, bound and a ``torch.matmul`` of
-             the same arithmetic; also time the row gather of a park and
-             the host time of one step.  These are the costs that
-             ``fused_evolver._step_cost`` prices a step with;
+             the same arithmetic; from k = 6 (the tensor cores, 3xTF32)
+             the bound is the 3xTF32 one, beside the fp32 CUDA-core one,
+             and U's bytes per launch stand beside the state's; also time
+             the row gather of a park and the host time of one step.
+             These are the costs that ``fused_evolver._step_cost`` prices
+             a step with;
   parity     ``simulate(get_rqc(24, ...), optimize='evolution')`` on the
              card against a per-gate numpy oracle on the host, at 20 and
              40 random gates after an H layer: max|d| over the largest
@@ -29,11 +33,12 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              ``FusedEvolver`` picks), ``apply_gate_rows`` (``test_pallas.py``'s
              positions at L = 10, and n = 12) and ``apply_fused_k4`` (the
              main path's and ``probe_fused_k4.py``'s bits, beside
-             ``apply_fused``).  Each path runs once with launch counts
-             zeroed just before and read just after, and must keep the
-             norm; then each case is held against its plain version
-             (max|d|/rms <= 1e-5) and timed with its bound and one PyTorch
-             call of the same function;
+             ``apply_fused``; it runs ``column_apply_kernel<4>`` too).
+             Each path runs once with launch counts zeroed just before
+             and read just after, and must keep the norm; then each case
+             is held against its plain version (max|d|/rms <= 1e-5) and
+             timed with its bound and one PyTorch call of the same
+             function;
   main_path  n = 30 (8 GiB of state), the workload of ``bench.py``: 24
              random 4-qubit unitaries avoiding bits 0-2.  First through
              ``simulate(..., optimize='evolution')``, with launch counts
@@ -112,6 +117,8 @@ TOL = 1e-5                 # max|d|/rms, kernel against plain (f32 sums)
 # evolution gives 6e-7 to 8e-7 at these depths on the card and on the CPU.
 PARITY_TOL = 3e-6
 PAIRED_SLACK = 1.1         # paired pass time over unpaired, at most
+MAX_COLUMN_K = 5           # column_apply_kernel: k <= 5; group_apply_kernel
+LOG_TILE = 13              # above, on tiles of 2^13 amplitudes
 NORM_TOL = 1e-4
 # Published peaks (NVIDIA data sheets, dense): bytes/s, fp32 FLOP/s outside
 # the tensor cores, TF32 FLOP/s on the tensor cores.
@@ -128,7 +135,7 @@ KERNEL_INFO = {
                         'hybridq_tpu/simulation/pallas_kernels.py:201'),
     'factored_apply': ('hybridq_tpu_torch/csrc/factored_apply.cu',
                        'hybridq_tpu/simulation/pallas_fused.py:633'),
-    'fused_k4_apply': ('hybridq_tpu_torch/csrc/fused_k4.cu',
+    'fused_k4_apply': ('hybridq_tpu_torch/csrc/fused_apply.cu',
                        'scripts/probe_fused_k4.py:24'),
     'stream_scale': ('hybridq_tpu_torch/csrc/stream_scale.cu',
                      'scripts/probe_pallas_bw.py:42'),
@@ -185,6 +192,25 @@ def bound(n, k, name, flops_needed=None):
              else flops_needed) / flops
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                        else 'operations')
+
+
+def group_bound(n, k, name):
+    """Least time (ms) of ``group_apply_kernel``'s pass (k >= 6): the
+    state's bytes, or 3 * 8 * 2^(n+k) flops (3xTF32) at the TF32 peak of
+    the tensor cores."""
+    bw, _, tf32 = peaks(name)
+    t_bytes = 2 * 2 ** (n + 1) * 4 / bw
+    t_ops = 3 * 8 * 2 ** (n + k) / tf32
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations (3xTF32)')
+
+
+def u_bytes(n, k):
+    """Bytes of U that ``group_apply_kernel`` reads through L1/L2 in one
+    launch: all 2^(2k) complex64 entries once per tile of 2^(13-k)
+    columns."""
+    tiles = 2 ** max(0, n - LOG_TILE)
+    return tiles * 2 ** (2 * k) * 8
 
 
 def time_ms(fn, reps):
@@ -262,6 +288,11 @@ def compare_kernel(n, kind, U, bits, victims, gen, name, reps):
                  2.0 ** (-n / 2), reps)
     k = len(bits)
     r['bound_ms'], r['bound_by'] = bound(n, k, name)
+    if k > MAX_COLUMN_K:        # the tensor cores: the 3xTF32 bound
+        r['bound_fp32_ms'] = r['bound_ms']
+        r['bound_ms'], r['bound_by'] = group_bound(n, k, name)
+        r['u_bytes'] = u_bytes(n, k)
+        r['state_bytes'] = 2 * 2 ** (n + 1) * 4
     r['library_ms'] = library_ms(torch.matmul, (2 ** k, 2 ** k),
                                  (2 ** k, 2 ** (n - k)), reps=reps)
     return r
@@ -309,8 +340,8 @@ def phase_build(out):
     t0 = time.perf_counter()
     libs = _build.build_all()
     dt = time.perf_counter() - t0
-    for src in ('fused_apply', 'factored_apply', 'fused_k4', 'stream_scale',
-                'dot_probe', 'gather_runs'):
+    for src in ('fused_apply', 'factored_apply', 'stream_scale', 'dot_probe',
+                'gather_runs'):
         check(src in libs, f"{src} was not built")
     nvcc = subprocess.run([_build.nvcc_path(), '--version'],
                           capture_output=True, text=True).stdout
@@ -319,12 +350,14 @@ def phase_build(out):
           'torch': torch.__version__, 'torch_cuda': torch.version.cuda,
           'nvcc': nvcc.strip().splitlines()[-1],
           'card': card_power(), 'ptxas': ptxas}, out)
-    column = {e: r for e, r in ptxas.items() if 'column_apply_kernel' in e}
-    check(len(column) == 5, f"build: {len(column)} column_apply_kernel "
-          f"instantiations in the ptxas output, not 5")
-    for entry, r in column.items():
-        check(r['spill_stores'] == r['spill_loads'] == 0,
-              f"build: {entry} spills: {r}")
+    for kernel, count in (('column_apply_kernel', 5),
+                          ('group_apply_kernel', 3)):
+        found = {e: r for e, r in ptxas.items() if kernel in e}
+        check(len(found) == count, f"build: {len(found)} {kernel} "
+              f"instantiations in the ptxas output, not {count}")
+        for entry, r in found.items():
+            check(r['spill_stores'] == r['spill_loads'] == 0,
+                  f"build: {entry} spills: {r}")
 
 
 def ptxas_entries(logs):
@@ -401,6 +434,12 @@ def phase_kernels(out, name):
               'swap': {f"{r['k']},{r['cls'][1]}": round(r['ms'], 3)
                        for r in rows if r['kind'] == 'swap'},
               'park': round(park_ms, 3),
+              # group_apply_kernel per k: time against both bounds
+              'group': {r['k']: {key: r[key] for key in (
+                  'ms', 'bound_ms', 'bound_by', 'bound_fp32_ms',
+                  'library_ms', 'u_bytes', 'state_bytes')}
+                  for r in rows if r['kind'] == 'fused_k' and
+                  r['k'] > MAX_COLUMN_K},
               'step_ms': round(step_host_ms(), 4)}}, out)
 
 

@@ -17,41 +17,19 @@
 // [16 w, 16 w + 16) and all 16 column tiles of 8, 64 accumulators a thread,
 // and walks k in steps of 8 through mma.sync.aligned.m16n8k8 (TF32 in,
 // f32 accumulate).  Operands are read straight from global memory (192 KB
-// in all, L2-resident).  Every operand goes through cvt.rna.tf32.f32: the
-// tensor cores otherwise truncate the low 13 mantissa bits, and the
-// 3xTF32 residual small = tf32(a - big) would not be the rounding error of
-// big.  The three products are accumulated small_a big_b, big_a small_b,
-// big_a big_b, smallest first.
+// in all, L2-resident).  Every operand goes through cvt.rna.tf32.f32
+// (to_tf32 and split of tf32_mma.cuh).  The three products are
+// accumulated small_a big_b, big_a small_b, big_a big_b, smallest first.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kN = 128;
 constexpr int kWarps = kN / 16;
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// big = tf32(x), small = tf32(x - big)
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <bool kSplit>
 __global__ void __launch_bounds__(kWarps * 32)

@@ -30,10 +30,13 @@
 // group and is folded into the store addresses.
 //
 // Bound on this card: every call reads and writes the whole state once,
-// 2 * 2^(n+1) * 4 bytes, and does 8 * 2^(n+k) fp32 flops.  With 3.35 TB/s
-// and 67 TFLOP/s (H100 SXM) k <= 5 is bound by bytes (at k = 5 the flops
-// come to 80% of the bytes' time) and k >= 6 by operations on the CUDA
-// cores.  Hence two designs:
+// 2 * 2^(n+1) * 4 bytes, and does 8 * 2^(n+k) flops.  With 3.35 TB/s and
+// 67 TFLOP/s of fp32 on the CUDA cores (H100 SXM) k <= 5 is bound by bytes
+// (at k = 5 the flops come to 80% of the bytes' time).  From k = 6 the
+// product goes to the tensor cores in 3xTF32, 3 * 8 * 2^(n+k) flops at
+// 495 TFLOP/s: k = 6 is still bound by bytes (1.28 against 0.83 ms at
+// n = 28), k = 7 and 8 by operations (1.67 and 3.33 ms).  Hence two
+// designs:
 //
 // column_apply_kernel<K>, k = 1..5, bound by bytes: move each byte once
 // and keep every load in flight.
@@ -59,29 +62,55 @@
 //     stores at sigma(p) before all have read; no thread returns before
 //     it.  Threads past the last column (n < K + 8) are masked.
 //
-// group_apply_kernel<TM>, k = 6..8, bound by operations: reuse each U
-// element across many columns.
-//   * Each block owns TILE = min(8192, 2^n) complex amplitudes: M = 2^k
-//     rows times BN = TILE / M columns, always whole groups.  Below n = 13
-//     the tile is the whole state; threads beyond its BN columns redo the
-//     last column (the same reads before the sync, the same values written
-//     after it);
-//   * the block stages its tile's re/im in shared memory (64 KB), syncs,
-//     then each thread computes TM contiguous rows for TN = 32 / TM
-//     columns and writes straight back to device memory;
-//   * U (up to 256 x 256 complex = 512 KB, more than a block's shared
-//     memory) is read through the read-only path: every lane of a warp
-//     reads the same element, a broadcast served by L1/L2.
+// group_apply_kernel<K>, k = 6..8, on the tensor cores: the TPU kernel's
+// own arithmetic (the MXU at Precision.HIGHEST), as 3xTF32 mma.sync.
+//   * Real form: Yr = Ur Xr - Ui Xi, Yi = Ui Xr + Ur Xi, four real
+//     products on mma.sync.aligned.m16n8k8 (TF32 in, f32 accumulate), each
+//     in 3xTF32: small.big + big.small + big.big, the small products of a
+//     k step first.  Both operands are split in registers as their
+//     fragments are loaded (split_finite: big rounded as cvt.rna rounds,
+//     in 2 integer operations; the residual left for the tensor cores to
+//     truncate); -Xi is Xi with its sign bits flipped.
+//   * Tiles: a tile is M = 2^K rows times BN = 2^13 / M columns (BN = 128,
+//     64, 32), always whole groups: BN / 2^kv rest indices times all 2^kv
+//     victim combinations.  Its re and im sit in dynamic shared memory,
+//     rows padded to BN + 8 floats so that a B fragment's 8 columns times
+//     4 rows hit 32 banks.  Columns past the state's last (n < K + kv +
+//     log BN) are zeros and are never stored.
+//   * Persistent blocks, at most one an SM (the two stages take 139-165
+//     KiB), walk the tiles.  While the tensor cores work on one tile,
+//     cp.async brings the next into the other stage: the groups of two
+//     tiles are disjoint, so its loads may go out before this tile's
+//     stores.  Each cp.async moves V = 4, 2 or 1 floats, the longest run
+//     that the lowest group bit, the rest count and the alignment of re
+//     and im - re allow (TMA tensor maps do not fit: a tile's rows are
+//     gathered through up to 10 arbitrary bits, a tensor map has 5
+//     dimensions).  Every read of a tile lands before the barrier that
+//     precedes its first store, so the store may go to sigma(p) in place.
+//   * Eight warps a block, each 32 rows times 32 columns (two m16 by four
+//     n8 fragments, 64 accumulators a thread).  A k step's six products of
+//     an output go into a fresh sum, pass by pass over the eight sums of
+//     two n8 fragments, so that consecutive mma.sync do not wait on each
+//     other's accumulator; the sums are then added to the accumulators in
+//     f32, rounded to nearest (kProdA).  U (32-512 KB, more than a block's
+//     shared memory at K = 8) streams from L1/L2 as A fragments, one k step
+//     ahead (across tiles too); every tile reads all of it once per block
+//     column of warps: (2^(n-K) / BN) 2^(2K) 8 bytes a launch, 16 GiB at
+//     n = 28, K = 8, against the state's 4 GiB.
+//   * Stores go from the accumulators to sigma(base | goff) = sigma(base) |
+//     sigma(goff) (sigma permutes bits), from two tables in shared memory:
+//     float2 stores of two neighbouring columns when V >= 2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kLogThreads = 8;
-constexpr int kTile = 8192;          // complex amplitudes of a full tile
-constexpr int kLogTile = 13;
+constexpr int kLogTile = 13;         // 2^13 amplitudes a group tile
 constexpr int kMaxK = 8;             // gate bits
 constexpr int kMaxV = 2;             // victim bits
 constexpr int kMaxColumnK = 5;       // largest k of column_apply_kernel
@@ -210,102 +239,283 @@ cudaError_t launch_column(float* re, int64_t im_off, const float2* U,
   return cudaGetLastError();
 }
 
-// Physical index of the first amplitude of local column `col` of block
-// `blk`: the rest index deposited around the group bits, plus the victim
-// combination.
-__device__ __forceinline__ int64_t column_base(const GateArgs& a, int blk,
-                                               int col, int log_br) {
-  const int br_mask = (1 << log_br) - 1;
-  return deposit(a, ((int64_t)blk << log_br) + (col & br_mask)) |
-         victim_offset(a, col >> log_br);
+// Rows of U and columns of a tile that one warp owns, and the padding of a
+// shared-memory row (floats).
+constexpr int kWarpRows = 32;
+constexpr int kWarpCols = 32;
+constexpr int kPad = 8;
+
+template <int K>
+struct GroupTile {
+  static constexpr int M = 1 << K;                 // gate rows
+  static constexpr int LOG_BN = kLogTile - K;
+  static constexpr int BN = 1 << LOG_BN;           // columns of a tile
+  static constexpr int S = BN + kPad;              // shared row stride
+  static constexpr int WC = BN / kWarpCols;        // warps across columns
+  static constexpr int STAGE = 2 * M * S;          // floats: re, then im
+  // two stages, the store bases of each, the gate offsets and their sigma
+  static constexpr size_t SMEM = 2 * STAGE * sizeof(float) +
+                                 (2 * BN + 2 * M) * sizeof(int64_t);
+  static_assert((M / kWarpRows) * WC * 32 == kThreads, "8 warps a tile");
+};
+
+// Issue the copies of tile `tile` into one stage: thread (j0, cv) copies
+// vector column cv (V floats) of rows j0, j0 + kThreads / NV, ..., re and
+// im; the threads of row 0 record sigma of their columns' bases.  Dead
+// columns (rest index past the state's last) become zeros.
+template <int K, int V>
+__device__ __forceinline__ void issue_tile(
+    const float* __restrict__ re, int64_t im_off, const GateArgs& a,
+    int tile, float* stage, int64_t* cst, const int64_t* goff, int log_br,
+    int log_rest) {
+  using T = GroupTile<K>;
+  constexpr int NV = T::BN / V;
+  constexpr int RSTEP = kThreads / NV;
+  const int cv = threadIdx.x % NV;
+  const int j0 = threadIdx.x / NV;
+  const int col = cv * V;
+  const int rl = col & ((1 << log_br) - 1);
+  float* dst = stage + col;
+  if (log_rest >= log_br || rl < (1 << log_rest)) {
+    const int64_t cb = deposit(a, ((int64_t)tile << log_br) + rl) |
+                       victim_offset(a, col >> log_br);
+    if (j0 == 0) {
+      const int64_t cs = exchange(a, cb);
+#pragma unroll
+      for (int v = 0; v < V; ++v) cst[col + v] = cs + v;
+    }
+    for (int j = j0; j < T::M; j += RSTEP) {
+      const float* src = re + (cb + goff[j]);
+      cp_async<4 * V>(dst + j * T::S, src);
+      cp_async<4 * V>(dst + (T::M + j) * T::S, src + im_off);
+    }
+  } else {
+    for (int j = j0; j < T::M; j += RSTEP)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        dst[j * T::S + v] = dst[(T::M + j) * T::S + v] = 0.f;
+  }
 }
 
-template <int TM>
-__global__ void __launch_bounds__(kThreads)
+// The six 3xTF32 products of Yr = Ur Xr - Ui Xi (row 0) and Yi = Ur Xi +
+// Ui Xr (row 1), small ones first: A operand kProdA[p] (Ur big, Ur small,
+// Ui big, Ui small) times B operand kProdB[.][p] (Xr big, Xr small, Xi
+// big, Xi small, -Xi big, -Xi small).  An mma.sync adds to its f32
+// accumulator with a rounding that is not to nearest (on an H100, with
+// all 6 * 2^k / 8 products of a k loop in one accumulator, max|d|/rms
+// grew with k past 1e-5 at k = 7 and 8), so each k step's six go into a
+// fresh sum first, which f32 adds then round to nearest.
+__device__ constexpr int kProdA[6] = {1, 0, 3, 2, 0, 2};
+__device__ constexpr int kProdB[2][6] = {{0, 1, 4, 5, 0, 4},
+                                         {2, 3, 0, 1, 2, 0}};
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 1)
 group_apply_kernel(float* __restrict__ re, int64_t im_off,
                    const float2* __restrict__ U, GateArgs a) {
-  constexpr int TN = 32 / TM;
+  using T = GroupTile<K>;
+  constexpr int M = T::M, BN = T::BN, S = T::S;
+  constexpr int RT = kWarpRows / 16;     // m16 fragments a warp
+  constexpr int CT = kWarpCols / 8;      // n8 fragments a warp
+  constexpr int CB = 2;                  // n8 fragments a batch
+  constexpr uint32_t kSign = 0x80000000u;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // xi at a constant offset from xr: the block takes a full tile's
-  // shared memory even when its tile is smaller.
-  float* xr = reinterpret_cast<float*>(smem_raw);   // [M][BN]
-  float* xi = xr + kTile;                           // [M][BN]
-  int64_t* goff = reinterpret_cast<int64_t*>(xi + kTile);  // [M]
-
-  const int M = 1 << a.k;
-  const int log_bn = a.log_tile - a.k;
-  const int BN = 1 << log_bn;
-  const int log_br = log_bn - a.kv;
-  const int TR = M / TM;                 // row threads
-  const int TC = kThreads / TR;          // column threads
-  const int tr = threadIdx.x / TC;
-  const int tc = threadIdx.x % TC;
-  const int blk = blockIdx.x;
+  float* xs = reinterpret_cast<float*>(smem_raw);       // [2][2][M][S]
+  int64_t* cst = reinterpret_cast<int64_t*>(xs + 2 * T::STAGE);  // [2][BN]
+  int64_t* goff = cst + 2 * BN;                         // [M]
+  int64_t* gst = goff + M;                              // [M]
 
   for (int j = threadIdx.x; j < M; j += kThreads) {
     int64_t o = 0;
 #pragma unroll
-    for (int b = 0; b < kMaxK; ++b)
-      if (b < a.k && ((j >> (a.k - 1 - b)) & 1))
-        o |= int64_t(1) << a.gbits[b];
+    for (int b = 0; b < K; ++b)
+      if ((j >> (K - 1 - b)) & 1) o |= int64_t(1) << a.gbits[b];
     goff[j] = o;
+    gst[j] = exchange(a, o);
   }
   __syncthreads();
 
-  // Stage the tile: thread (tr, tc) loads rows tr*TM.. of its columns.
-  for (int tn = 0; tn < TN; ++tn) {
-    const int col = min(tc + TC * tn, BN - 1);
-    const int64_t base = column_base(a, blk, col, log_br);
+  // V = 2^log_vec floats a copy: within a run of the lowest group bit,
+  // within the rest count, and aligned in re and in im = re + im_off.
+  const int log_br = T::LOG_BN - a.kv;         // rest indices a tile
+  const int log_rest = a.n - K - a.kv;         // rest indices in all
+  const uintptr_t align = reinterpret_cast<uintptr_t>(re) |
+                          static_cast<uintptr_t>(im_off * 4);
+  int log_vec = 2;
+  while (log_vec > 0 && (a.group[0] < log_vec || log_rest < log_vec ||
+                         (align & ((uintptr_t(4) << log_vec) - 1))))
+    --log_vec;
+  auto issue = [&](int tile, int st) {
+    float* stage = xs + st * T::STAGE;
+    int64_t* c = cst + st * BN;
+    if (log_vec == 2)
+      issue_tile<K, 4>(re, im_off, a, tile, stage, c, goff, log_br,
+                       log_rest);
+    else if (log_vec == 1)
+      issue_tile<K, 2>(re, im_off, a, tile, stage, c, goff, log_br,
+                       log_rest);
+    else
+      issue_tile<K, 1>(re, im_off, a, tile, stage, c, goff, log_br,
+                       log_rest);
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, column
+  const int row0 = (warp / T::WC) * kWarpRows;
+  const int col0 = (warp % T::WC) * kWarpCols;
+  // A fragment element (g, t) of this warp's first m16 tile at k step 0
+  const float2* Uw = U + (int64_t)(row0 + g) * M + t;
+  float2 un[RT][4];                      // U's next A fragments, raw
+  auto load_u = [&](int j0) {
 #pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      const int j = tr * TM + m;
-      const float* r = re + (base + goff[j]);
-      xr[j * BN + col] = r[0];
-      xi[j * BN + col] = r[im_off];
+    for (int rt = 0; rt < RT; ++rt) {
+      const float2* u = Uw + (int64_t)(16 * rt) * M + j0;
+      un[rt][0] = __ldg(u);
+      un[rt][1] = __ldg(u + 8 * M);
+      un[rt][2] = __ldg(u + 4);
+      un[rt][3] = __ldg(u + 8 * M + 4);
     }
-  }
-  __syncthreads();
+  };
 
-  const float2* Urows = U + (int64_t)(tr * TM) * M;
-  for (int tn = 0; tn < TN; ++tn) {
-    const int col = min(tc + TC * tn, BN - 1);
-    float ar[TM], ai[TM];
+  const int tiles = 1 << (a.n - a.log_tile);
+  int tile = blockIdx.x;
+  issue(tile, 0);
+  cp_async_commit();
+  load_u(0);
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int st = it & 1;
+    if (tile + (int)gridDim.x < tiles) issue(tile + gridDim.x, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();                  // this tile's copies have landed
+    __syncthreads();
+
+    const float* xr = xs + st * T::STAGE;
+    const float* xi = xr + M * S;
+    float accr[RT][CT][4], acci[RT][CT][4];
 #pragma unroll
-    for (int m = 0; m < TM; ++m) ar[m] = ai[m] = 0.f;
-    for (int j = 0; j < M; ++j) {
-      const float x_r = xr[j * BN + col];
-      const float x_i = xi[j * BN + col];
+    for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-      for (int m = 0; m < TM; ++m) {
-        const float2 u = __ldg(&Urows[m * M + j]);
-        ar[m] = fmaf(u.x, x_r, ar[m]);
-        ar[m] = fmaf(-u.y, x_i, ar[m]);
-        ai[m] = fmaf(u.x, x_i, ai[m]);
-        ai[m] = fmaf(u.y, x_r, ai[m]);
+      for (int ct = 0; ct < CT; ++ct)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) accr[rt][ct][q] = acci[rt][ct][q] = 0.f;
+#pragma unroll 1
+    for (int j0 = 0; j0 < M; j0 += 8) {
+      uint32_t af[4][RT][4];             // Ur big, Ur small, Ui big, Ui small
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          split_finite(un[rt][q].x, af[0][rt][q], af[1][rt][q]);
+          split_finite(un[rt][q].y, af[2][rt][q], af[3][rt][q]);
+        }
+      load_u(j0 + 8 < M ? j0 + 8 : 0);   // the next tile starts at 0
+#pragma unroll
+      for (int c0 = 0; c0 < CT; c0 += CB) {
+        // B fragments (8 x 8, column-major): rows j0 + t and j0 + t + 4;
+        // Xr big, Xr small, Xi big, Xi small, -Xi big, -Xi small
+        uint32_t bf[CB][6][2];
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb) {
+          const int x0 = (j0 + t) * S + col0 + (c0 + cb) * 8 + g;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            split_finite(xr[x0 + 4 * q * S], bf[cb][0][q], bf[cb][1][q]);
+            split_finite(xi[x0 + 4 * q * S], bf[cb][2][q], bf[cb][3][q]);
+            bf[cb][4][q] = bf[cb][2][q] ^ kSign;
+            bf[cb][5][q] = bf[cb][3][q] ^ kSign;
+          }
+        }
+        // This k step's six products of each output into a fresh sum, pass
+        // by pass over 4 * CB independent sums, then added to the
+        // accumulators in f32 (see kProdA).
+        float part[CB][RT][2][4];
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+          for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+            for (int q = 0; q < 8; ++q) part[cb][rt][q / 4][q % 4] = 0.f;
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+            for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+              for (int ri = 0; ri < 2; ++ri)
+                mma_tf32(part[cb][rt][ri], af[kProdA[p]][rt],
+                         bf[cb][kProdB[ri][p]]);
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+          for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              accr[rt][c0 + cb][q] += part[cb][rt][0][q];
+              acci[rt][c0 + cb][q] += part[cb][rt][1][q];
+            }
       }
     }
-    const int64_t base = column_base(a, blk, col, log_br);
+
+    // C fragment (16 x 8): (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+    const int64_t* cs = cst + st * BN;
+    const int br_mask = (1 << log_br) - 1;
 #pragma unroll
-    for (int m = 0; m < TM; ++m) {
-      float* r = re + exchange(a, base + goff[tr * TM + m]);
-      r[0] = ar[m];
-      r[im_off] = ai[m];
+    for (int ct = 0; ct < CT; ++ct) {
+      const int c = col0 + ct * 8 + 2 * t;
+      const bool live0 =
+          log_rest >= log_br || (c & br_mask) < (1 << log_rest);
+      const bool live1 =
+          log_rest >= log_br || ((c + 1) & br_mask) < (1 << log_rest);
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int64_t go = gst[row0 + 16 * rt + 8 * h + g];
+          const float* yr = accr[rt][ct] + 2 * h;
+          const float* yi = acci[rt][ct] + 2 * h;
+          if (log_vec > 0) {             // c, c + 1 adjacent and aligned
+            if (live0) {
+              float* p = re + (cs[c] | go);
+              *reinterpret_cast<float2*>(p) = make_float2(yr[0], yr[1]);
+              *reinterpret_cast<float2*>(p + im_off) =
+                  make_float2(yi[0], yi[1]);
+            }
+          } else {
+            if (live0) {
+              float* p = re + (cs[c] | go);
+              p[0] = yr[0];
+              p[im_off] = yi[0];
+            }
+            if (live1) {
+              float* p = re + (cs[c + 1] | go);
+              p[0] = yr[1];
+              p[im_off] = yi[1];
+            }
+          }
+        }
     }
+    __syncthreads();                     // the stage is free for reuse
   }
 }
 
-template <int TM>
+template <int K>
 cudaError_t launch_group(float* re, int64_t im_off, const float2* U,
                          const GateArgs& a, cudaStream_t stream) {
-  const size_t smem = 2 * kTile * sizeof(float) +
-                      (size_t(1) << a.k) * sizeof(int64_t);
+  using T = GroupTile<K>;
   cudaError_t err = cudaFuncSetAttribute(
-      group_apply_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      group_apply_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)T::SMEM);
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)(uint64_t(1) << (a.n - a.log_tile));
-  group_apply_kernel<TM><<<grid, kThreads, smem, stream>>>(re, im_off, U,
-                                                           a);
+  int dev, sms;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int tiles = 1 << (a.n - a.log_tile);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  group_apply_kernel<K><<<grid, kThreads, T::SMEM, stream>>>(re, im_off, U,
+                                                             a);
   return cudaGetLastError();
 }
 
@@ -321,7 +531,8 @@ extern "C" int hq_group_apply(float* re, float* im, const void* U, int n,
                               int k, const int* gbits, int kv,
                               const int* abits, const int* vbits,
                               void* stream) {
-  // grid.x < 2^31: 2^(n - k - 8) column blocks, 2^(n - 13) tiles
+  // grid.x < 2^31: 2^(n - k - 8) column blocks; tile indices < 2^31:
+  // 2^(n - 13) tiles of 2^13 amplitudes, walked by at most one block an SM
   const int log_grid = k <= kMaxColumnK ? n - k - kLogThreads
                                         : n - kLogTile;
   if (k < 1 || k > kMaxK || kv < 0 || kv > kMaxV || n < k + kv ||
@@ -357,9 +568,9 @@ extern "C" int hq_group_apply(float* re, float* im, const void* U, int n,
     case 3: err = launch_column<3>(re, im_off, u, a, st); break;
     case 4: err = launch_column<4>(re, im_off, u, a, st); break;
     case 5: err = launch_column<5>(re, im_off, u, a, st); break;
-    case 6: err = launch_group<8>(re, im_off, u, a, st); break;
-    case 7: err = launch_group<16>(re, im_off, u, a, st); break;
-    default: err = launch_group<32>(re, im_off, u, a, st); break;
+    case 6: err = launch_group<6>(re, im_off, u, a, st); break;
+    case 7: err = launch_group<7>(re, im_off, u, a, st); break;
+    default: err = launch_group<8>(re, im_off, u, a, st); break;
   }
   return (int)err;
 }

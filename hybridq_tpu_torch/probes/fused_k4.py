@@ -4,7 +4,9 @@ The counterpart of ``scripts/probe_fused_k4.py`` ``mk``, the TPU's
 experiment with a k_hi = 4 variant of ``fused_kernel``.
 ``apply_fused_k4(state, U, bits)`` computes exactly
 ``fused_kernels.apply_fused`` at k = 4 (any four bits >= 7) on the same
-container, through ``csrc/fused_k4.cu``; its plain version is
+container, through ``hq_group_apply`` of ``csrc/fused_apply.cu``, whose
+``column_apply_kernel<4>`` has k fixed at compile time (one column a
+thread in registers); its plain version is
 ``fused_kernels.apply_fused_plain``.  The engine does not route to it.
 
 ``fused_k4_launches`` counts the kernel's launches; ``reset_counts``
@@ -51,14 +53,6 @@ def apply_fused_k4(state: torch.Tensor, U, bits: Sequence[int]
     if not fk._kernel_device(state):
         return fk.apply_fused_plain(state, U, bits)
     U = fk._operand(U, _K, state.device)
-    # re, im, U, n, bits, stream
-    fn = fk._c_function('fused_k4', 'hq_fused_k4_apply',
-                        [fk._PTR, fk._PTR, fk._PTR, fk._INT, fk._INT_P,
-                         fk._PTR])
-    re, im = fk._halves(state, n)
-    with torch.cuda.device(state.device):
-        err = fn(re.data_ptr(), im.data_ptr(), U.data_ptr(), n,
-                 fk._ints(bits, _K), fk._stream(state))
-    fk._check_launch(err, f"fused_k4 (n={n}, bits={bits})")
+    fk._launch(*fk._halves(state, n), U, n, bits, [], [])
     fused_k4_launches += 1
     return state

@@ -480,17 +480,17 @@ class FusedEvolver:
 #   _STEP_MS                host time of one step, which no n scales.
 # Measured by chip_smoke.py's `kernels` phase (kernel ms at n = 28; the
 # host time of a memoized step at n = 16) on an NVIDIA H100 80GB HBM3 at
-# a 700 W power limit, in the run whose `main_path` PERF.md section 5
-# reports: csrc/fused_apply.cu's column_apply_kernel for k <= 5, its
-# group_apply_kernel for k = 6..8.
+# a 700 W power limit: k <= 5 (csrc/fused_apply.cu's column_apply_kernel),
+# the park and the step in one run, k = 6..8 (its group_apply_kernel,
+# 3xTF32 on the tensor cores) in a later one; PERF.md names both runs.
 _COST_N = 28
 _STEP_MS = 0.0685
-_FUSED_COST = {1: 1.446, 2: 1.512, 3: 1.496, 4: 1.527, 5: 1.882, 6: 7.364,
-               7: 15.708, 8: 27.353}
+_FUSED_COST = {1: 1.446, 2: 1.512, 3: 1.496, 4: 1.527, 5: 1.882, 6: 2.445,
+               7: 4.268, 8: 7.758}
 _SWAP_COST = {(1, 1): 1.825, (2, 1): 1.502, (3, 1): 1.536, (4, 1): 1.535,
-              (5, 1): 2.0, (6, 1): 7.489, (7, 1): 15.732, (8, 1): 27.553,
+              (5, 1): 2.0, (6, 1): 2.478, (7, 1): 4.401, (8, 1): 7.785,
               (2, 2): 1.669, (3, 2): 1.542, (4, 2): 1.554, (5, 2): 2.189,
-              (6, 2): 7.552, (7, 2): 16.043, (8, 2): 27.919}
+              (6, 2): 2.509, (7, 2): 4.454, (8, 2): 7.926}
 _PARK_COST = 2.555
 
 

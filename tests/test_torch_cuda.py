@@ -20,7 +20,7 @@ import torch
 from hybridq_tpu_torch.probes import bw, fused_k4, gather
 from hybridq_tpu_torch.simulation import fused_kernels as fk
 from hybridq_tpu_torch.simulation import row_kernels as rk
-from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
+from hybridq_tpu_torch.simulation.fused_evolver import _SW, FusedEvolver
 
 ATOL = 1e-5
 FUSED_CLASSES = [0, 1, 2, 3, 4]
@@ -151,13 +151,13 @@ def test_cuda_evolver_matches_cpu_evolver(cuda):
 @pytest.mark.parametrize('n, bits, kv', [
     (8, [7], 0), (11, [10, 7], 0), (12, [7, 11, 9, 8, 10], 0),
     (13, [12, 9], 0),
-] + [(n, k, kv) for k in range(1, 6) for kv in range(min(k, 2) + 1)
+] + [(n, k, kv) for k in range(1, 9) for kv in range(min(k, 2) + 1)
      for n in sorted({k + kv, 11})])
 def test_cuda_fused_below_one_tile(n, bits, kv, cuda):
-    """Registers smaller than a block's columns: the fixed bit sets through
-    ``apply_fused``, then k = 1..5 gate bits (``bits`` a count: random
-    positions, bits 0-2 included) with kv of them exchanged with victims,
-    at n = k + kv (one column) and n = 11."""
+    """Registers smaller than a block's columns or a tile: the fixed bit
+    sets through ``apply_fused``, then k = 1..8 gate bits (``bits`` a
+    count: random positions, bits 0-2 included) with kv of them exchanged
+    with victims, at n = k + kv (one column) and n = 11."""
     rng = np.random.default_rng([n, kv, bits if isinstance(bits, int)
                                  else len(bits)])
     if isinstance(bits, int):
@@ -169,6 +169,29 @@ def test_cuda_fused_below_one_tile(n, bits, kv, cuda):
         return
     U = torch.as_tensor(_rand_u(len(bits), rng), dtype=torch.complex64,
                         device=cuda)
+    st = _rand_state(n, rng, cuda)
+    a, b = st.clone(), st.clone()
+    fk.apply_fused(a, U, bits)
+    fk.apply_fused_plain(b, U, bits)
+    torch.cuda.synchronize()
+    assert (a - b).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize('c', [3, 4])
+def test_cuda_park_permutation(c, cuda):
+    """An in-place park on 2c = 6 or 8 bits: the pair-SWAP permutation of
+    ``FusedEvolver._park_pass`` through ``apply_fused``, on the tensor
+    cores from k = 6 (3xTF32 carries about 2^-22 relative rounding where
+    the FMA kernel was exact)."""
+    rng = np.random.default_rng(c)
+    n = 20
+    U = np.array([[1.0]], dtype=np.complex64)
+    for _ in range(c):
+        U = np.kron(U, _SW)
+    U = torch.as_tensor(U, device=cuda)
+    high = [int(b) for b in rng.choice(range(12, n), c, replace=False)]
+    sub = [int(b) for b in rng.choice(range(7, 12), c, replace=False)]
+    bits = [b for pair in zip(high, sub) for b in pair]
     st = _rand_state(n, rng, cuda)
     a, b = st.clone(), st.clone()
     fk.apply_fused(a, U, bits)
