@@ -19,12 +19,18 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              and U's bytes per launch stand beside the state's; also time
              the row gather of a park and the host time of one step.
              These are the costs that ``fused_evolver._step_cost`` prices
-             a step with;
-  parity     ``simulate(get_rqc(24, ...), optimize='evolution')`` on the
-             card against a per-gate numpy oracle on the host, at 20 and
-             40 random gates after an H layer: max|d| over the largest
-             amplitude <= 3e-6 at both depths, max|d|/rms <= 1e-5 at 20
-             (the roadmap's contract is 1e-6); both kernels must launch;
+             a step with.  Then the straight classes: ``apply_bits`` at
+             k = 1..8 with the lowest gate bit at 0, 1, 2, 3 and >= 7 (the
+             other bits those of the fused k - 1 case), held and timed the
+             same way: the straight cost table (``kernels.straight_cost``);
+  parity     ``simulate(get_rqc(24, ...))`` on the card against a
+             per-gate numpy oracle on the host, at 20 and 40 random gates
+             after an H layer, three times: ``'evolution'`` and
+             ``'evolution-fused'`` in complex64 (max|d| over the largest
+             amplitude <= 3e-6 at both depths, max|d|/rms <= 1e-5 at 20;
+             the engine's kernels must launch, no plain version run), and
+             ``'evolution'`` in complex128 (max|d|/rms <= 1e-6, the
+             roadmap's contract);
   paths      n = 30, the public functions of the other ported kernels at
              the bit sets the JAX package's callers use: ``apply_factored``
              (``probe_fused_perf.py``'s and ``probe_fused_check.py``'s
@@ -41,14 +47,27 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              function;
   main_path  n = 30 (8 GiB of state), the workload of ``bench.py``: 24
              random 4-qubit unitaries avoiding bits 0-2.  First through
-             ``simulate(..., optimize='evolution')``, with launch counts
-             zeroed just before and read just after; then bench-style
+             ``simulate(..., optimize='evolution')`` (the straight engine
+             or ``FusedEvolver``, as ``simulation.ENGINE_ON_CARD`` says),
+             then ``'evolution-fused'``, each with launch counts zeroed
+             just before and read just after, its seconds and device peak
+             recorded (the result goes to the host); then bench-style
              timed passes through ``FusedEvolver`` with amplitudes read
-             through the slot map (no flush, no gather), paired by
-             ``pair_fused_gates`` and unpaired; the paired pass may take
-             at most 1.1x the unpaired one.  Each kernel is then replayed
-             at the most frequent gate size the main path gave it and
-             held against its plain version.
+             through the slot map (no flush, no gather) and through
+             ``IndexedEvolver``, each paired (``pair_fused_gates``,
+             ``pair_matrix_gates``) and unpaired, in one run; a paired pass
+             may take at most 1.1x its unpaired one.  Then straight passes
+             and ``simulate`` at n = 31 and 32.  Each kernel is then
+             replayed at the most frequent gate size the main path gave it
+             and held against its plain version.
+  dm         ``dm.simulate`` of ``get_rqc(15, 60)`` with a
+             ``LocalDepolarizingChannel`` on every qubit after each layer of
+             15 gates: a 15-qubit density matrix, 30 qubits doubled, in
+             complex64 on the card (trace within 1e-4 of 1, Hermitian on
+             sampled pairs, ``apply_bits`` launched and no plain call;
+             seconds, launches and peak recorded); and the same
+             construction at 12 qubits in complex64 against complex128 on
+             the card (max|d| / max|amp| <= 3e-6).
   probes     the card's counterparts of the bandwidth and dot probes
              (``scripts/probe_pallas_bw.py``, ``probe_pallas_gather.py``)
              at the scripts' 2 GiB of f32: first ``probes.bw.main()`` and
@@ -116,6 +135,13 @@ TOL = 1e-5                 # max|d|/rms, kernel against plain (f32 sums)
 # max|d| / max|amp| of simulate against the complex128 oracle: f32
 # evolution gives 6e-7 to 8e-7 at these depths on the card and on the CPU.
 PARITY_TOL = 3e-6
+CONTRACT = 1e-6            # max|d|/rms of complex128 against the oracle
+N_WIDE = (31, 32)          # straight passes and simulate past n = 30
+STRAIGHT_LOW = (0, 1, 2, 3, 7)   # lowest gate bit of the straight classes
+N_DM, DM_GATES = 15, 60    # dm: qubits of rho (doubled on the card), gates
+N_DM_SMALL = 12
+DM_NOISE = 0.01            # depolarizing probability after each layer
+DM_TRACE_TOL = 1e-4
 PAIRED_SLACK = 1.1         # paired pass time over unpaired, at most
 MAX_COLUMN_K = 5           # column_apply_kernel: k <= 5; group_apply_kernel
 LOG_TILE = 13              # above, on tiles of 2^13 amplitudes
@@ -127,6 +153,8 @@ _PEAKS = {'H100 PCIe': (2.0e12, 51.2e12, 378e12),
           'H100': (3.35e12, 67e12, 495e12)}
 # wrapper -> (source in the repo, the TPU kernel it replaces)
 KERNEL_INFO = {
+    'apply_bits': ('hybridq_tpu_torch/csrc/fused_apply.cu',
+                   'hybridq_tpu/simulation/pallas_fused.py:175'),
     'fused_apply': ('hybridq_tpu_torch/csrc/fused_apply.cu',
                     'hybridq_tpu/simulation/pallas_fused.py:175'),
     'swap_apply': ('hybridq_tpu_torch/csrc/fused_apply.cu',
@@ -269,14 +297,20 @@ def library_ms(fn, *shapes, reps=REPS):
 
 
 def compare_kernel(n, kind, U, bits, victims, gen, name, reps):
-    """``fused_apply`` or ``swap_apply`` against its plain version on
+    """``apply_bits``, ``fused_apply`` or ``swap_apply`` (``kind`` 'bits',
+    'fused' or 'swap') against its plain version on
     one random unit-norm state, timed beside its bound and a
     ``torch.matmul`` of the same arithmetic."""
     import torch
     from hybridq_tpu_torch.simulation import fused_kernels as fk
 
     Ud = torch.as_tensor(U, device='cuda')
-    if kind == 'fused':
+    if kind == 'bits':
+        r = hold(lambda: (rand_state(n, gen),),
+                 lambda s: fk.apply_bits(s, Ud, bits),
+                 lambda s: fk.apply_bits_plain(s, Ud, bits),
+                 2.0 ** (-n / 2), reps)
+    elif kind == 'fused':
         r = hold(lambda: (rand_state(n, gen),),
                  lambda s: fk.apply_fused(s, Ud, bits),
                  lambda s: fk.apply_fused_plain(s, Ud, bits),
@@ -414,6 +448,24 @@ def phase_kernels(out, name):
         emit({'phase': 'kernels', 'n': n, **r}, out)
         check(r['rel_err'] <= TOL, f"{kind}{cls} k={k}: max|d|/rms "
               f"{r['rel_err']:.3g} > {TOL}")
+    # straight classes: apply_bits at k = 1..8, the lowest gate bit at
+    # 0..3 or >= 7, the other k - 1 bits those of the fused k - 1 case
+    def fused_k_bits(k):
+        return [n - 1 - 2 * i for i in range(k // 2)] + \
+            [7 + i for i in range((k + 1) // 2)]
+    straight = {}
+    for k in range(1, 9):
+        for low in STRAIGHT_LOW:
+            bits = fused_k_bits(k) if low >= 7 else \
+                fused_k_bits(k - 1) + [low]
+            r = compare_kernel(n, 'bits', rand_unitary(k, rng), bits, [],
+                               gen, name, REPS)
+            r.update({'kind': 'bits', 'k': k, 'low': min(bits),
+                      'bits': bits})
+            emit({'phase': 'kernels', 'n': n, **r}, out)
+            check(r['rel_err'] <= TOL, f"apply_bits k={k} bits={bits}: "
+                  f"max|d|/rms {r['rel_err']:.3g} > {TOL}")
+            straight.setdefault(k, {})[min(low, 7)] = round(r['ms'], 3)
     # park by row gather (inplace=False): the cost of a ('park',) step
     ev = FusedEvolver(n, device='cuda', inplace=False)
     st = ev.prepare_state('0' * n)
@@ -434,6 +486,8 @@ def phase_kernels(out, name):
               'swap': {f"{r['k']},{r['cls'][1]}": round(r['ms'], 3)
                        for r in rows if r['kind'] == 'swap'},
               'park': round(park_ms, 3),
+              # apply_bits ms by k and lowest gate bit (7: all >= 7)
+              'straight': straight,
               # group_apply_kernel per k: time against both bounds
               'group': {r['k']: {key: r[key] for key in (
                   'ms', 'bound_ms', 'bound_by', 'bound_fp32_ms',
@@ -460,6 +514,21 @@ def numpy_oracle(circuit, qubits):
     return psi
 
 
+# the kernels each engine of simulate launches
+ENGINE_KERNELS = {'indexed': ('apply_bits',),
+                  'fused': ('fused_apply', 'swap_apply'),
+                  'torch': ()}
+
+
+def check_engine_launches(where, engine, launches):
+    """Every kernel of ``engine`` launched, and no plain version ran."""
+    for key in ENGINE_KERNELS[engine]:
+        check(launches[key] > 0, f"{where}: {key} was not launched "
+              f"({engine} engine): {launches}")
+    plain = {k: v for k, v in launches.items() if k.endswith('_plain') and v}
+    check(not plain, f"{where}: a plain version ran: {plain}")
+
+
 def phase_parity(out):
     import torch
     from hybridq_tpu_torch import Circuit, Gate
@@ -468,36 +537,45 @@ def phase_parity(out):
     from hybridq_tpu_torch.simulation import simulate
 
     n = N_PARITY
+    runs = [('evolution', 'complex64'), ('evolution-fused', 'complex64'),
+            ('evolution', 'complex128')]
     for depth in PARITY_GATES:
         np.random.seed(SEED)
         c = Circuit([Gate('H', qubits=[q]) for q in range(n)]) + \
             get_rqc(n, depth, indexes=list(range(n)))
-        fk.reset_counts()
-        t0 = time.perf_counter()
-        psi = simulate(c, initial_state='0', optimize='evolution')
-        dt = time.perf_counter() - t0
-        launches = fk.counts()
         want = numpy_oracle(c, sorted(c.all_qubits))
-        d = np.abs(psi.astype(np.complex128) - want).max()
         rms = np.sqrt(np.mean(np.abs(want) ** 2))
         amax = np.abs(want).max()
-        emit({'phase': 'parity', 'n': n, 'gates': len(c),
-              'max_abs_err': float(d), 'rel_err': float(d / rms),
-              'err_over_max_amp': float(d / amax),
-              'max_amp_over_rms': float(amax / rms),
-              'contract': 1e-6, 'within_contract': bool(d / rms <= 1e-6),
-              'seconds': dt, 'launches': launches}, out)
-        check(launches['fused_apply'] > 0 and launches['swap_apply'] > 0,
-              f"parity: a kernel was not launched: {launches}")
-        check(launches['apply_fused_plain'] == 0 and
-              launches['apply_swap_plain'] == 0,
-              f"parity: a plain version ran: {launches}")
-        check(d / amax <= PARITY_TOL, f"parity ({depth} gates): max|d| / "
-              f"max|amp| {d / amax:.3g} > {PARITY_TOL}")
-        if depth == PARITY_GATES[0]:
-            check(d / rms <= TOL, f"parity ({depth} gates): max|d|/rms "
-                  f"{d / rms:.3g} > {TOL}")
-        del psi
+        for optimize, ctype in runs:
+            fk.reset_counts()
+            t0 = time.perf_counter()
+            psi, info = simulate(c, initial_state='0', optimize=optimize,
+                                 complex_type=ctype, return_info=True)
+            dt = time.perf_counter() - t0
+            launches = fk.counts()
+            d = np.abs(psi.astype(np.complex128) - want).max()
+            emit({'phase': 'parity', 'n': n, 'gates': len(c),
+                  'optimize': optimize, 'complex_type': ctype,
+                  'engine': info['engine'], 'max_abs_err': float(d),
+                  'rel_err': float(d / rms),
+                  'err_over_max_amp': float(d / amax),
+                  'max_amp_over_rms': float(amax / rms),
+                  'contract': CONTRACT,
+                  'within_contract': bool(d / rms <= CONTRACT),
+                  'seconds': dt, 'launches': launches}, out)
+            what = f"parity ({depth} gates, {optimize}, {ctype})"
+            check_engine_launches(what, info['engine'], launches)
+            if ctype == 'complex128':
+                check(psi.dtype == np.complex128, f"{what}: {psi.dtype}")
+                check(d / rms <= CONTRACT, f"{what}: max|d|/rms "
+                      f"{d / rms:.3g} > {CONTRACT}")
+                continue
+            check(d / amax <= PARITY_TOL, f"{what}: max|d| / max|amp| "
+                  f"{d / amax:.3g} > {PARITY_TOL}")
+            if depth == PARITY_GATES[0]:
+                check(d / rms <= TOL, f"{what}: max|d|/rms {d / rms:.3g} "
+                      f"> {TOL}")
+            del psi
         torch.cuda.empty_cache()
 
 
@@ -830,47 +908,116 @@ def bench_workload(n, k, n_gates, rng, min_bit=3):
     return gates
 
 
-def phase_main_path(out, name):
+def host_norm(flat, chunk=2 ** 24):
+    """2-norm of a host complex64 vector, summed in float64 a chunk at a
+    time (no temporary of the vector's size)."""
+    total = 0.0
+    for s in range(0, flat.size, chunk):
+        part = flat[s:s + chunk].astype(np.complex128)
+        total += np.vdot(part, part).real
+    return np.sqrt(total)
+
+
+def drive_simulate(gates, n, optimize, idx):
+    """One ``simulate`` of ``gates`` (identities keep all n qubits in the
+    register; the result goes to the host), launch counts zeroed just
+    before and read just after, device peak from just before; returns
+    the measured numbers and the amplitudes at ``idx``."""
     import torch
     from hybridq_tpu_torch import Gate
     from hybridq_tpu_torch.convert import circuit_from_matrices
-    from hybridq_tpu_torch.simulation import fused_evolver as fe
     from hybridq_tpu_torch.simulation import fused_kernels as fk
     from hybridq_tpu_torch.simulation import simulate
 
+    circuit = circuit_from_matrices(gates) + \
+        [Gate('I', qubits=[q]) for q in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    t0 = time.perf_counter()
+    psi, info = simulate(circuit, initial_state='0' * n, optimize=optimize,
+                         remove_id_gates=False, return_info=True,
+                         max_largest_intermediate=2 ** n)
+    dt = time.perf_counter() - t0
+    launches = fk.counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(psi.shape == (2,) * n and psi.dtype == np.complex64,
+          f"main_path: simulate returned {psi.dtype} {psi.shape}")
+    flat = psi.reshape(-1)
+    norm = host_norm(flat)
+    amps = {int(i): complex(flat[int(i)]) for i in idx}
+    del psi, flat
+    check(abs(norm - 1) <= NORM_TOL, f"main_path: simulate ({optimize}, "
+          f"n={n}) norm {norm}")
+    check_engine_launches(f"main_path simulate ({optimize}, n={n})",
+                          info['engine'], launches)
+    container = 2 ** (n + 1) * 4
+    return {'optimize': optimize, 'engine': info['engine'], 'n': n,
+            'simulate_s': dt, 'simulate_norm': float(norm),
+            'launches': launches, 'peak_gib': peak / 2 ** 30,
+            'peak_over_container': peak / container}, amps
+
+
+def timed_passes(ev, state, items, tag):
+    """Warm passes until the slot map repeats at a pass boundary (every
+    operand is then uploaded; one pass for the straight engine), then
+    ``REPS`` timed passes; returns the state, seconds a pass, warm passes
+    and launches a pass."""
+    import torch
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+
+    def run_pass(state):
+        for i, (U, qs) in enumerate(items):
+            state = ev.apply_gate(state, np.asarray(U), tuple(qs),
+                                  gate_key=(tag, i))
+        return state
+
+    phys = getattr(ev, 'phys', None)
+    seen = {tuple(phys or ())}
+    warm = 0
+    for warm in range(1, 13):
+        state = run_pass(state)
+        key = tuple(getattr(ev, 'phys', None) or ())
+        if key in seen:
+            break
+        seen.add(key)
+    torch.cuda.synchronize()
+    fk.reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        state = run_pass(state)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / REPS
+    return state, dt, warm, {k: v / REPS for k, v in fk.counts().items()
+                             if v}
+
+
+def phase_main_path(out, name):
+    import torch
+    from hybridq_tpu_torch.simulation import fused_evolver as fe
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+    from hybridq_tpu_torch.simulation import kernels as ik
+
     n = N_MAIN
+    card = card_power()
     rng = np.random.default_rng(SEED)
     gates = bench_workload(n, 4, MAIN_GATES, rng)
     idx = np.random.default_rng(SEED + 1).choice(2 ** n, 16, replace=False)
 
-    # (a) the user's entry point; the gates avoid the last 3 qubits, so
-    # identities keep all n of them in the register.
-    circuit = circuit_from_matrices(gates) + \
-        [Gate('I', qubits=[q]) for q in range(n)]
-    torch.cuda.reset_peak_memory_stats()
-    fk.reset_counts()
-    t0 = time.perf_counter()
-    psi = simulate(circuit, initial_state='0' * n, optimize='evolution',
-                   remove_id_gates=False, return_numpy_array=False)
-    torch.cuda.synchronize()
-    t_sim = time.perf_counter() - t0
-    launches = fk.counts()
-    peak_sim = torch.cuda.max_memory_allocated()
-    check(tuple(psi.shape) == (2,) * n and psi.dtype == torch.complex64,
-          f"main_path: simulate returned {psi.dtype} {tuple(psi.shape)}")
-    flat = psi.reshape(-1)
-    norm = torch.linalg.vector_norm(flat).item()
-    amps_sim = {int(i): complex(flat[int(i)].item()) for i in idx}
-    del psi, flat
+    # (a) the user's entry point, then the fused route through it
+    sim, amps_sim = drive_simulate(gates, n, 'evolution', idx)
+    emit({'phase': 'main_path', 'part': 'simulate', **sim, 'card': card},
+         out)
+    sim_fused, amps_fused = drive_simulate(gates, n, 'evolution-fused', idx)
+    emit({'phase': 'main_path', 'part': 'simulate', **sim_fused,
+          'card': card}, out)
+    d_sim = max(abs(amps_sim[i] - amps_fused[i]) for i in amps_sim)
+    check(d_sim <= 1e-6, f"main_path: 'evolution' and 'evolution-fused' "
+          f"disagree ({d_sim:.3g})")
     torch.cuda.empty_cache()
-    check(abs(norm - 1) <= NORM_TOL, f"main_path: simulate norm {norm}")
-    check(launches['fused_apply'] > 0 and launches['swap_apply'] > 0,
-          f"main_path: a kernel was not launched: {launches}")
-    check(launches['apply_fused_plain'] == 0 and
-          launches['apply_swap_plain'] == 0,
-          f"main_path: a plain version ran: {launches}")
 
-    # (b) bench-style passes through FusedEvolver, never flushing
+    # (b) bench-style passes through FusedEvolver, never flushing, and
+    # (c) through IndexedEvolver, in one run
     ev = fe.FusedEvolver(n, device='cuda')
     blocks = fe.pair_fused_gates(gates, n, fe.MapSim.of(ev))
 
@@ -887,93 +1034,186 @@ def phase_main_path(out, name):
     orig = fe.apply_fused, fe.apply_swap
     fe.apply_fused = recorder('fused', fk.apply_fused)
     fe.apply_swap = recorder('swap', fk.apply_swap)
-
-    def run_pass(state, items=blocks, tag='blk'):
-        for i, (U, qs) in enumerate(items):
-            state = ev.apply_gate(state, np.asarray(U), tuple(qs),
-                                  gate_key=(tag, i))
-        return state
-
-    def timed_passes(state, items, tag):
-        """Warm passes until the slot map repeats at a pass boundary
-        (every operand is then uploaded), then timed passes."""
-        seen = {tuple(ev.phys)}
-        warm = 0
-        for warm in range(1, 13):
-            state = run_pass(state, items, tag)
-            if tuple(ev.phys) in seen:
-                break
-            seen.add(tuple(ev.phys))
-        torch.cuda.synchronize()
-        fk.reset_counts()
-        t0 = time.perf_counter()
-        for _ in range(REPS):
-            state = run_pass(state, items, tag)
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / REPS
-        return state, dt, warm, {k: v / REPS
-                                 for k, v in fk.counts().items()}
-
     torch.cuda.reset_peak_memory_stats()
     try:
         state = ev.prepare_state('0' * n)
-        state = run_pass(state)
+        for i, (U, qs) in enumerate(blocks):
+            state = ev.apply_gate(state, np.asarray(U), tuple(qs),
+                                  gate_key=('blk', i))
     finally:
         fe.apply_fused, fe.apply_swap = orig
     d_amp = max(abs(ev.amplitude(state, int(i)) - amps_sim[int(i)])
                 for i in idx)
     check(d_amp <= 1e-6, f"main_path: evolver and simulate disagree "
           f"({d_amp:.3g})")
-    state, dt, warm, pass_launches = timed_passes(state, blocks, 'blk')
+    state, dt, warm, pass_launches = timed_passes(ev, state, blocks, 'blk')
     # the same gates unpaired, one kernel class per 4-qubit gate
-    state, dt_single, _, _ = timed_passes(state, gates, 'gate')
+    state, dt_single, _, _ = timed_passes(ev, state, gates, 'gate')
     peak_ev = torch.cuda.max_memory_allocated()
     norm_ev = torch.linalg.vector_norm(state).item()
-    del state
+    del state, ev
     torch.cuda.empty_cache()
     check(abs(norm_ev - 1) <= NORM_TOL, f"main_path: norm {norm_ev}")
-    emit({'phase': 'main_path', 'n': n, 'gates': len(gates),
-          'blocks': len(blocks),
-          'block_sizes': sorted(len(q) for _, q in blocks),
-          'simulate_s': t_sim, 'simulate_norm': norm,
-          'simulate_peak_gib': peak_sim / 2 ** 30,
-          'launches': launches, 'warm_passes': warm,
-          'pass_s': dt, 'gates_per_s': len(gates) / dt,
-          'launches_per_pass': pass_launches,
-          'unpaired_pass_s': dt_single,
-          'unpaired_gates_per_s': len(gates) / dt_single,
-          'evolver_norm': norm_ev, 'evolver_peak_gib': peak_ev / 2 ** 30,
-          'amp_diff_vs_simulate': d_amp, 'card': card_power()}, out)
+
+    straight = ik.pair_matrix_gates(gates, n)
+    sev = ik.IndexedEvolver(n, device='cuda')
+    torch.cuda.reset_peak_memory_stats()
+    state = sev.prepare_state('0' * n)
+    for i, (U, qs) in enumerate(straight):
+        state = sev.apply_gate(state, np.asarray(U), tuple(qs),
+                               gate_key=('st', i))
+    d_st = max(abs(sev.amplitude(state, int(i)) - amps_sim[int(i)])
+               for i in idx)
+    check(d_st <= 1e-6, f"main_path: straight evolver and simulate "
+          f"disagree ({d_st:.3g})")
+    state, dt_st, _, st_launches = timed_passes(sev, state, straight, 'st')
+    state, dt_st_single, _, _ = timed_passes(sev, state, gates, 'sg')
+    peak_st = torch.cuda.max_memory_allocated()
+    norm_st = torch.linalg.vector_norm(state).item()
+    del state
+    torch.cuda.empty_cache()
+    check(abs(norm_st - 1) <= NORM_TOL, f"main_path: straight norm "
+          f"{norm_st}")
+    emit({'phase': 'main_path', 'part': 'passes', 'n': n,
+          'gates': len(gates),
+          'fused': {'blocks': len(blocks),
+                    'block_sizes': sorted(len(q) for _, q in blocks),
+                    'warm_passes': warm, 'pass_s': dt,
+                    'gates_per_s': len(gates) / dt,
+                    'launches_per_pass': pass_launches,
+                    'unpaired_pass_s': dt_single,
+                    'unpaired_gates_per_s': len(gates) / dt_single,
+                    'norm': norm_ev, 'peak_gib': peak_ev / 2 ** 30},
+          'straight': {'blocks': len(straight),
+                       'block_sizes': sorted(len(q) for _, q in straight),
+                       'pass_s': dt_st, 'gates_per_s': len(gates) / dt_st,
+                       'launches_per_pass': st_launches,
+                       'unpaired_pass_s': dt_st_single,
+                       'unpaired_gates_per_s': len(gates) / dt_st_single,
+                       'norm': norm_st, 'peak_gib': peak_st / 2 ** 30},
+          'straight_over_fused': dt_st / dt,
+          'amp_diff_vs_simulate': {'fused': d_amp, 'straight': d_st},
+          'card': card}, out)
     check(dt <= PAIRED_SLACK * dt_single,
           f"main_path: the paired pass ({dt:.4f} s) is slower than the "
           f"unpaired one ({dt_single:.4f} s)")
+    check(dt_st <= PAIRED_SLACK * dt_st_single,
+          f"main_path: the paired straight pass ({dt_st:.4f} s) is slower "
+          f"than the unpaired one ({dt_st_single:.4f} s)")
+
+    # (d) past n = 30: straight passes and simulate
+    for m in N_WIDE:
+        wide = bench_workload(m, 4, MAIN_GATES, np.random.default_rng(SEED))
+        items = ik.pair_matrix_gates(wide, m)
+        wev = ik.IndexedEvolver(m, device='cuda')
+        torch.cuda.reset_peak_memory_stats()
+        state = wev.prepare_state('0' * m)
+        state, dt_m, _, _ = timed_passes(wev, state, items, 'w')
+        peak_m = torch.cuda.max_memory_allocated()
+        del state
+        torch.cuda.empty_cache()
+        sim_m, _ = drive_simulate(wide, m, 'evolution', [0])
+        torch.cuda.empty_cache()
+        emit({'phase': 'main_path', 'part': 'wide', 'n': m,
+              'blocks': len(items), 'pass_s': dt_m,
+              'gates_per_s': len(wide) / dt_m, 'peak_gib': peak_m / 2 ** 30,
+              'simulate': sim_m, 'card': card}, out)
 
     # replay each kernel at the main path's most frequent gate size
     gen = torch.Generator(device='cuda')
     gen.manual_seed(SEED)
-    summary = []
+    sizes = [len(qs) for _, qs in straight]
+    k = max(set(sizes), key=sizes.count)
+    U, qs = next(b for b in straight if len(b[1]) == k)
+    replays = [('bits', 'apply_bits', np.asarray(U, np.complex64),
+                [n - 1 - q for q in qs], [], sim)]
     for kind, kname in (('fused', 'fused_apply'), ('swap', 'swap_apply')):
         mine = [c for c in calls if c[0] == kind]
         sizes = [len(c[2][0]) for c in mine]
         k = max(set(sizes), key=sizes.count)
         _, U, rest = next(c for c in mine if len(c[2][0]) == k)
-        bits, victims = rest[0], (rest[1] if kind == 'swap' else [])
-        r = compare_kernel(n, kind, U.cpu().numpy(), bits, victims, gen,
-                           name, REPS)
+        replays.append((kind, kname, U.cpu().numpy(), rest[0],
+                        rest[1] if kind == 'swap' else [], sim_fused))
+    summary = []
+    for kind, kname, U, bits, victims, path in replays:
+        r = compare_kernel(n, kind, U, bits, victims, gen, name, REPS)
         emit({'phase': 'main_path_kernel', 'name': kname, 'n': n,
-              'k': k, 'bits': bits, 'victims': victims, **r}, out)
+              'k': len(bits), 'bits': bits, 'victims': victims, **r}, out)
         check(r['rel_err'] <= TOL, f"{kname} at n={n}: max|d|/rms "
               f"{r['rel_err']:.3g} > {TOL}")
         src, replaces = KERNEL_INFO[kname]
         summary.append({'name': kname, 'route': 'cuda', 'source': src,
                         'replaces': replaces,
-                        'launches': launches[kname],
+                        'launches': path['launches'][kname],
                         'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                         'plain_ms': r['plain_ms'],
                         'bound_ms': r['bound_ms'],
                         'bound_by': r['bound_by'],
                         'library_ms': r['library_ms']})
     return summary
+
+
+def noisy_rqc(n, depth):
+    """``get_rqc(n, depth)`` (seeded) with a ``LocalDepolarizingChannel``
+    on every qubit after each layer of ``n`` gates."""
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.noise import LocalDepolarizingChannel
+
+    np.random.seed(SEED)
+    out = []
+    for i, g in enumerate(get_rqc(n, depth, indexes=list(range(n)))):
+        out.append(g)
+        if (i + 1) % n == 0:
+            out += list(LocalDepolarizingChannel(list(range(n)), DM_NOISE))
+    return out
+
+
+def phase_dm(out):
+    """See the module docstring."""
+    import torch
+    from hybridq_tpu_torch import dm
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+
+    card = card_power()
+    m = N_DM
+    c = noisy_rqc(m, DM_GATES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    t0 = time.perf_counter()
+    rho, info = dm.simulate(c, initial_state='0', return_info=True,
+                            max_largest_intermediate=2 ** (2 * m))
+    dt = time.perf_counter() - t0
+    launches = fk.counts()
+    peak = torch.cuda.max_memory_allocated()
+    rho = rho.reshape(2 ** m, 2 ** m)
+    trace = complex(np.trace(rho))
+    rng = np.random.default_rng(SEED)
+    i, j = rng.integers(2 ** m, size=(2, 4096))
+    herm = float(np.abs(rho[i, j] - rho[j, i].conj()).max())
+    amax = float(np.abs(np.diagonal(rho)).max())
+    del rho
+    emit({'phase': 'dm', 'qubits': m, 'doubled': 2 * m, 'gates': len(c),
+          'engine': info['engine'], 'seconds': dt, 'launches': launches,
+          'peak_gib': peak / 2 ** 30, 'trace': [trace.real, trace.imag],
+          'hermitian_max_abs_err': herm, 'max_abs_diag': amax,
+          'card': card}, out)
+    check(info['engine'] == 'indexed', f"dm: {info['engine']} engine")
+    check_engine_launches('dm', info['engine'], launches)
+    check(abs(trace - 1) <= DM_TRACE_TOL, f"dm: trace {trace}")
+    check(herm <= TOL * amax, f"dm: not Hermitian ({herm:.3g})")
+
+    m = N_DM_SMALL
+    c = noisy_rqc(m, DM_GATES)
+    r64 = dm.simulate(c, initial_state='0', optimize='evolution-indexed')
+    r128 = dm.simulate(c, initial_state='0', complex_type='complex128')
+    d = float(np.abs(r64.astype(np.complex128) - r128).max())
+    amax = float(np.abs(r128).max())
+    emit({'phase': 'dm', 'qubits': m, 'doubled': 2 * m,
+          'complex64_vs_complex128': d, 'err_over_max_amp': d / amax,
+          'card': card}, out)
+    check(d / amax <= PARITY_TOL, f"dm: complex64 against complex128 "
+          f"{d / amax:.3g} > {PARITY_TOL}")
 
 
 def main(argv=None):
@@ -1004,7 +1244,9 @@ def main(argv=None):
         phase_parity(out)
         paths = phase_paths(out, name)
         probes = phase_probes(out, name)
-        emit({'kernels': phase_main_path(out, name) + paths + probes}, out)
+        main = phase_main_path(out, name)
+        phase_dm(out)
+        emit({'kernels': main + paths + probes}, out)
         print(card_power(), flush=True)
         # count: the one card the run used (device 0)
         print(json.dumps({'ok': True, 'device': {

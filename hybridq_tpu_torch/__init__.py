@@ -8,6 +8,10 @@ nor ``hybridq_tpu``.
 
 Engines:
   * state-vector evolution  — `hybridq_tpu_torch.simulation.simulate`
+    (complex64 on the straight engine or the fused one, complex128 on
+    plain PyTorch)
+  * density matrices        — `hybridq_tpu_torch.dm.simulate`, with the
+    noise channels of `hybridq_tpu_torch.noise`
 
 Kernels off the engine's path: `simulation.apply_factored`,
 `simulation.apply_gate_rows` and the probe `probes.apply_fused_k4`.

@@ -1,9 +1,12 @@
 """Carry state between ``hybridq_tpu`` and this port.
 
-The system has no weights: its state is the fused engine's container and
-slot map.  The JAX engine keeps the container as a ``[2^(n-6), 128]`` f32
-array; the port keeps the same floats as a flat tensor.  Both sides take
-numpy arrays, so this module imports nothing of the JAX package.
+The system has no weights: its state is the engines' split container (re
+half, then im half) and, for the fused engine, its slot map.  The JAX
+fused engine keeps the container as a ``[2^(n-6), 128]`` f32 array and
+JAX's ``IndexedEvolver`` hands out a flushed ``[2, 2^n]`` pair
+(``unpack_host``); both are reshapes of the port's flat tensor.  Both
+sides take numpy arrays, so this module imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -15,9 +18,10 @@ import torch
 
 from hybridq_tpu_torch.circuit import Circuit
 from hybridq_tpu_torch.gate import MatrixGate
+from hybridq_tpu_torch.simulation._device import resolve_device
 
 __all__ = ['state_from_reference', 'state_to_reference',
-           'circuit_from_matrices']
+           'pair_to_reference', 'circuit_from_matrices']
 
 
 def _check_phys(phys, n):
@@ -27,19 +31,25 @@ def _check_phys(phys, n):
     return phys
 
 
-def state_from_reference(container: np.ndarray, phys: Sequence[int],
-                         device=None):
-    """The JAX engine's container (``[2^(n-6), 128]`` f32) and slot map
-    ``phys`` -> ``(state, phys, logi)`` for a port ``FusedEvolver``
-    (assign ``ev.phys, ev.logi = phys, logi``)."""
+def state_from_reference(container: np.ndarray,
+                         phys: Sequence[int] = None, device=None):
+    """A JAX engine's state -> ``(state, phys, logi)`` on ``device``:
+    the fused engine's container (``[2^(n-6), 128]`` f32) with its slot
+    map ``phys``, for a port ``FusedEvolver`` (assign ``ev.phys, ev.logi =
+    phys, logi``); or ``IndexedEvolver``'s flushed ``[2, 2^n]`` pair with
+    ``phys=None`` (canonical: the identity), for the port's
+    ``IndexedEvolver``.  ``device=None`` means ``'cuda'``, which raises
+    without a card (pass ``device='cpu'``)."""
+    device = resolve_device(device, 'state_from_reference()')
     container = np.asarray(container)
-    if container.dtype != np.float32 or container.ndim != 2 or \
-            container.shape[1] != 128:
-        raise ValueError("container must be a [2^(n-6), 128] f32 array")
-    n = container.shape[0].bit_length() + 5
-    if container.shape[0] != 2 ** (n - 6):
-        raise ValueError("container rows must be a power of two")
-    phys = _check_phys(phys, n)
+    if container.dtype != np.float32 or container.ndim != 2:
+        raise ValueError("container must be a 2-D f32 array")
+    n = container.size.bit_length() - 2
+    if n < 1 or container.size != 2 ** (n + 1) or \
+            container.shape not in ((2 ** (n - 6), 128), (2, 2 ** n)):
+        raise ValueError("container must be a [2^(n-6), 128] or a "
+                         "[2, 2^n] f32 array")
+    phys = _check_phys(range(n) if phys is None else phys, n)
     logi = [0] * n
     for b, s in enumerate(phys):
         logi[s] = b
@@ -55,6 +65,16 @@ def state_to_reference(state: torch.Tensor, phys: Sequence[int]):
     if flat.size != 2 ** (n + 1):
         raise ValueError("state must hold 2^(n+1) floats")
     return flat.reshape(2 ** (n - 6), 128).copy(), _check_phys(phys, n)
+
+
+def pair_to_reference(state: torch.Tensor) -> np.ndarray:
+    """The port's container in canonical order -> the ``[2, 2^n]`` f32
+    pair (re, im) that JAX's ``IndexedEvolver`` packs."""
+    flat = state.detach().to('cpu', torch.float32).numpy()
+    n = flat.size.bit_length() - 2
+    if flat.size != 2 ** (n + 1):
+        raise ValueError("state must hold 2^(n+1) floats")
+    return flat.reshape(2, 2 ** n).copy()
 
 
 def circuit_from_matrices(items) -> Circuit:

@@ -316,38 +316,18 @@ class FusedEvolver:
 
     # -- state ---------------------------------------------------------
     def prepare_state(self, state: str) -> torch.Tensor:
-        """Token product state built on the device: the re half is
-        ``outer(row_amp, lane_amp)`` written straight into the
-        container, with no state-sized temporary."""
-        from hybridq_tpu_torch.simulation.prepare import (TOKEN_VECTORS,
-                                                          _check_state)
+        """Token product state built on the device, with no state-sized
+        temporary (``prepare.token_container``)."""
+        from hybridq_tpu_torch.simulation.prepare import token_container
 
-        n = self.n
-        state = _check_state(state, 2)
-        if len(state) != n:
-            raise ValueError("Wrong number of qubits for state.")
-        row_amp = np.array([1.0], dtype=np.float32)
-        for s in state[:n - 7]:
-            row_amp = np.multiply.outer(
-                row_amp, TOKEN_VECTORS[s].astype(np.float32)).reshape(-1)
-        lane_amp = np.array([1.0], dtype=np.float32)
-        for s in state[n - 7:]:
-            lane_amp = np.multiply.outer(
-                lane_amp, TOKEN_VECTORS[s].astype(np.float32)).reshape(-1)
-        out = torch.zeros(2 ** (n + 1), dtype=torch.float32,
-                          device=self.device)
-        row = torch.as_tensor(row_amp, device=self.device)
-        lane = torch.as_tensor(lane_amp, device=self.device)
-        torch.mul(row[:, None], lane[None, :],
-                  out=out[:2 ** n].view(2 ** (n - 7), 128))
-        return out
+        return token_container(state, self.n, self.device)
 
     def pack(self, psi) -> torch.Tensor:
         """Container of a complex ``(2,)*n`` host array or tensor in the
         canonical layout (the caller resets the slot map)."""
-        psi = torch.as_tensor(psi).to(self.device, torch.complex64)
-        return torch.cat([psi.real.reshape(-1),
-                          psi.imag.reshape(-1)]).contiguous()
+        from hybridq_tpu_torch.simulation.prepare import pack_container
+
+        return pack_container(psi, self.device)
 
     def amplitude_location(self, i: int):
         """Physical ``(row_re, col, row_im)`` of logical flat amplitude

@@ -6,8 +6,11 @@ floats, the real part of physical amplitude ``p`` at ``p`` and the
 imaginary part at ``p + 2^n`` (physical bit ``n`` is the "stack" bit), so
 that containers and slot maps compare one to one with JAX.
 
-Three wrappers, each with a plain PyTorch version beside it:
+Four wrappers, each with a plain PyTorch version beside it:
 
+  * ``apply_bits(state, U, bits)`` applies ``U`` at any distinct flat
+    bits, lane bits 0-6 included, in place: the straight route of
+    ``IndexedEvolver``, which keeps the layout canonical;
   * ``apply_fused(state, U, bits)`` applies the complex ``2^k x 2^k``
     matrix ``U`` to physical bits ``bits`` (MSB of the U index first, all
     >= 7), in place: ``psi'[p] = sum_j U[i(p), j] psi[p with bits := j]``;
@@ -38,10 +41,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ['fused_meta', 'swap_meta', 'apply_fused', 'apply_swap',
-           'apply_factored', 'apply_fused_plain', 'apply_swap_plain',
-           'apply_factored_plain', 'reset_counts', 'counts',
-           'FUSED_RUN_ROWS']
+__all__ = ['fused_meta', 'swap_meta', 'apply_bits', 'apply_fused',
+           'apply_swap', 'apply_factored', 'apply_bits_plain',
+           'apply_fused_plain', 'apply_swap_plain', 'apply_factored_plain',
+           'reset_counts', 'counts', 'FUSED_RUN_ROWS']
 
 FUSED_RUN_ROWS = 32
 _SUB_BITS = 5          # log2(FUSED_RUN_ROWS)
@@ -52,24 +55,30 @@ _MAX_K = 8             # largest gate the CUDA kernel takes
 _MAX_ROW_BITS = 9
 
 # Launches of each CUDA kernel, and calls of each plain version.
+bits_launches = 0
 fused_launches = 0
 swap_launches = 0
 factored_launches = 0
 fused_plain_calls = 0
 swap_plain_calls = 0
 factored_plain_calls = 0
+bits_plain_calls = 0
 
 
 def reset_counts():
-    global fused_launches, swap_launches, factored_launches, \
-        fused_plain_calls, swap_plain_calls, factored_plain_calls
-    fused_launches = swap_launches = factored_launches = 0
-    fused_plain_calls = swap_plain_calls = factored_plain_calls = 0
+    global bits_launches, fused_launches, swap_launches, \
+        factored_launches, bits_plain_calls, fused_plain_calls, \
+        swap_plain_calls, factored_plain_calls
+    bits_launches = fused_launches = swap_launches = factored_launches = 0
+    bits_plain_calls = fused_plain_calls = swap_plain_calls = \
+        factored_plain_calls = 0
 
 
 def counts() -> dict:
-    return {'fused_apply': fused_launches, 'swap_apply': swap_launches,
+    return {'apply_bits': bits_launches, 'fused_apply': fused_launches,
+            'swap_apply': swap_launches,
             'factored_apply': factored_launches,
+            'apply_bits_plain': bits_plain_calls,
             'apply_fused_plain': fused_plain_calls,
             'apply_swap_plain': swap_plain_calls,
             'apply_factored_plain': factored_plain_calls}
@@ -281,6 +290,23 @@ def _launch(re, im, U, n, bits, lane, victims):
 
 # -- wrappers ----------------------------------------------------------
 
+def apply_bits(state: torch.Tensor, U, bits: Sequence[int]) -> torch.Tensor:
+    """Apply the k = 1..8 qubit gate ``U`` to any distinct flat bits
+    ``bits`` (MSB of the U index first) of ``state`` in place; returns
+    ``state``.  ``U`` is best a complex64 tensor already on the state's
+    device: the launch then uploads nothing."""
+    global bits_launches
+    n = _n_of(state)
+    bits = [int(b) for b in bits]
+    _check_bits(n, bits)
+    if not _kernel_device(state):
+        return apply_bits_plain(state, U, bits)
+    U = _operand(U, len(bits), state.device)
+    _launch(*_halves(state, n), U, n, bits, [], [])
+    bits_launches += 1
+    return state
+
+
 def apply_fused(state: torch.Tensor, U, bits: Sequence[int]
                 ) -> torch.Tensor:
     """Apply ``U`` to physical bits ``bits`` (all >= 7) of ``state`` in
@@ -408,6 +434,19 @@ def _plain(re, im, n, U, bits, lane=(), victims=()):
         idx ^= (d << a) | (d << v)
     re[idx] = Y.real
     im[idx] = Y.imag
+
+
+def apply_bits_plain(state: torch.Tensor, U, bits: Sequence[int]
+                     ) -> torch.Tensor:
+    """Plain PyTorch version of ``apply_bits`` (gather, complex64 matmul,
+    scatter)."""
+    global bits_plain_calls
+    bits_plain_calls += 1
+    n = _n_of(state)
+    bits = [int(b) for b in bits]
+    _check_bits(n, bits)
+    _plain(*_halves(state, n), n, U, bits)
+    return state
 
 
 def apply_fused_plain(state: torch.Tensor, U, bits: Sequence[int]

@@ -1,7 +1,9 @@
-"""Initial/final state preparation (host side).
+"""Initial/final state preparation.
 
 A copy of the token-state helpers of ``hybridq_tpu/simulation/prepare.py``:
-tokens '0', '1', '+', '-' build a product state of ``len(state)`` qubits.
+tokens '0', '1', '+', '-' build a product state of ``len(state)`` qubits,
+on the host (``prepare_state``) or straight into the engines' split
+container on the device (``token_container``).
 """
 
 from __future__ import annotations
@@ -9,8 +11,10 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
-__all__ = ['prepare_state', 'TOKEN_VECTORS']
+__all__ = ['prepare_state', 'token_container', 'pack_container',
+           'TOKEN_VECTORS']
 
 _SQRT2 = np.sqrt(2.0)
 
@@ -46,3 +50,44 @@ def prepare_state(state: str, d=2, complex_type='complex64') -> np.ndarray:
                            (TOKEN_VECTORS[s] for s in state),
                            np.array(1.0))
     return np.asarray(psi, dtype=complex_type)
+
+
+def token_container(state: str, n: int, device) -> torch.Tensor:
+    """The split f32 container (``2^(n+1)`` floats, re half then im half)
+    of a token product state of ``n`` qubits, built on ``device``: the re
+    half is ``outer(row_amp, lane_amp)`` over the first ``n - 7`` and the
+    last ``min(n, 7)`` qubits, written straight into the container with no
+    state-sized temporary; the tokens are real, so the im half is 0."""
+    state = _check_state(state, 2)
+    if len(state) != n:
+        raise ValueError("Wrong number of qubits for state.")
+    lo = min(n, 7)
+
+    def amps(tokens):
+        a = np.array([1.0], dtype=np.float32)
+        for s in tokens:
+            a = np.multiply.outer(
+                a, TOKEN_VECTORS[s].astype(np.float32)).reshape(-1)
+        return torch.as_tensor(a, device=device)
+
+    row, lane = amps(state[:n - lo]), amps(state[n - lo:])
+    out = torch.zeros(2 ** (n + 1), dtype=torch.float32, device=device)
+    torch.mul(row[:, None], lane[None, :],
+              out=out[:2 ** n].view(2 ** (n - lo), 2 ** lo))
+    return out
+
+
+def pack_container(psi, device) -> torch.Tensor:
+    """The split f32 container of a complex ``(2,)*n`` host array or
+    tensor: its re and im parts are copied straight into the two halves,
+    with no complex copy on ``device``."""
+    psi = torch.as_tensor(psi).reshape(-1)
+    N = psi.numel()
+    out = torch.empty(2 * N, dtype=torch.float32, device=device)
+    if psi.is_complex():
+        out[:N].copy_(psi.real)
+        out[N:].copy_(psi.imag)
+    else:
+        out[:N].copy_(psi)
+        out[N:].zero_()
+    return out

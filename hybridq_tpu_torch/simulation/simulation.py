@@ -1,14 +1,20 @@
 """Engine dispatch + state-vector evolution front-end.
 
 The counterpart of ``hybridq_tpu/simulation/simulation.py`` for the
-``optimize='evolution'`` family:
+``optimize='evolution'`` family (its ``:204-240``):
 
   * ``'evolution'`` / ``'evolution-tpu'`` / ``'evolution-hybridq'``: the
     native engine.  On a CUDA device with >= 20 qubits in complex64 it is
-    the fused engine (``FusedEvolver`` on the CUDA kernels of
-    ``fused_kernels``); otherwise one ``tensordot`` per gate block on a
-    complex ``(2,)*n`` tensor (``statevector``).
-  * ``'evolution-fused'``: the fused engine at any n >= 14.
+    ``ENGINE_ON_CARD`` (the straight engine, ``IndexedEvolver``, one
+    ``apply_bits`` launch a block); otherwise one ``tensordot`` per gate
+    block on a complex ``(2,)*n`` tensor (``statevector``).
+  * ``'evolution-indexed'``: the straight engine at any n.
+  * ``'evolution-fused'`` (or ``fused_engine=True``): ``FusedEvolver``,
+    the route that mirrors the TPU engine's slots, victims and parks.
+  * ``complex_type='complex128'``: the per-gate ``statevector`` path in
+    complex128 on the device (JAX sends it to host numpy einsum, the
+    reference), except under ``'evolution-fused'``, which runs its f32
+    kernels and gathers the result to complex128, as JAX does.
   * ``expectation_value(state, op, qubits_order)``.
 
 ``device=None`` means ``'cuda'``; without a CUDA device ``simulate``
@@ -27,17 +33,22 @@ import torch
 
 from hybridq_tpu_torch.circuit import Circuit, utils
 from hybridq_tpu_torch.gate import FunctionalGate, Gate, StochasticGate
+from hybridq_tpu_torch.simulation._device import resolve_device
 
 __all__ = ['simulate', 'expectation_value']
 
 _NOT_PORTED = {
-    'indexed': "ROADMAP.md Queue 1, item 6 (IndexedEvolver)",
     'einsum': "ROADMAP.md Queue 1, item 4a (_evolve_einsum on "
               "torch.einsum)",
     'sharded': "ROADMAP.md Queue 1, item 11 (sharded engines)",
     'tn': "ROADMAP.md Queue 1, item 10 (tensor-network contraction)",
-    'complex128': "ROADMAP.md Queue 1, item 2a (complex128 evolution)",
 }
+_COMPLEX_TYPES = (np.dtype('complex64'), np.dtype('complex128'))
+
+# The engine of 'evolution' on a CUDA device from 20 qubits in complex64:
+# 'indexed' (the straight route) or 'fused' (FusedEvolver).  PERF.md
+# records the chip_smoke.py main_path run that chose it.
+ENGINE_ON_CARD = 'indexed'
 
 
 def _not_ported(what):
@@ -97,15 +108,6 @@ def _preprocess_circuit(circuit, initial_state, final_state, simplify,
     return circuit, qubits, initial_state, final_state
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device('cuda' if device is None else device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError("simulate() runs on a CUDA device by default "
-                           "and none is available; pass device='cpu' to "
-                           "run on the host")
-    return device
-
-
 def simulate(circuit, initial_state=None, final_state=None,
              optimize='evolution', backend='torch',
              complex_type='complex64', tensor_only: bool = False,
@@ -123,9 +125,10 @@ def simulate(circuit, initial_state=None, final_state=None,
     if tensor_only:
         raise ValueError(
             f"'tensor_only' is not supported for optimize={optimize}")
-    if np.dtype(complex_type) != np.dtype('complex64'):
-        raise _not_ported('complex128')
-    device = _resolve_device(device)
+    if np.dtype(complex_type) not in _COMPLEX_TYPES:
+        raise ValueError(f"complex_type must be complex64 or complex128, "
+                         f"got {complex_type}")
+    device = resolve_device(device)
 
     circuit, qubits, initial_state, final_state = _preprocess_circuit(
         circuit, initial_state, final_state, simplify, remove_id_gates,
@@ -177,9 +180,9 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
     if initial_state is None:
         raise ValueError(
             "'initial_state' must be specified for optimize='evolution'.")
-    if sub.split('-')[0] in ('indexed', 'einsum', 'sharded'):
+    if sub.split('-')[0] in ('einsum', 'sharded'):
         raise _not_ported(sub.split('-')[0])
-    if sub not in ('tpu', 'fused'):
+    if sub not in ('tpu', 'fused', 'indexed'):
         raise ValueError(f"optimize='evolution-{sub}' not implemented.")
 
     complex_type = np.dtype(complex_type)
@@ -195,50 +198,59 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
                             skip_compression=[FunctionalGate],
                             **compress_kw)
 
+    engine = _engine(sub, n_qubits, complex_type, device, kwargs)
+    info['engine'] = engine
+    evolve = {'fused': _evolve_fused, 'indexed': _evolve_indexed,
+              'torch': _evolve_torch}[engine]
     t0 = _time_mod.time()
-    if sub == 'fused' or _use_fused(n_qubits, device, kwargs):
-        psi = _evolve_fused(blocks, qubits, qubit_index, initial_state,
-                            complex_type, device, kwargs)
-    else:
-        psi = _evolve_torch(blocks, qubits, qubit_index, initial_state,
-                            complex_type, device)
-    if kwargs['block_until_ready'] and psi.is_cuda:
-        torch.cuda.synchronize(psi.device)
+    psi = evolve(blocks, qubits, qubit_index, initial_state, complex_type,
+                 device, kwargs)
+    if kwargs['block_until_ready'] and device.type == 'cuda':
+        torch.cuda.synchronize(device)
     info['runtime (s)'] = _time_mod.time() - t0
 
+    if kwargs['return_numpy_array'] and isinstance(psi, torch.Tensor):
+        psi = psi.cpu().numpy()
     if kwargs['return_numpy_array']:
-        psi = psi.cpu().numpy().astype(complex_type, copy=False)
+        psi = psi.astype(complex_type, copy=False)
 
     return (psi, info) if kwargs['return_info'] else psi
 
 
-def _use_fused(n_qubits, device, kwargs) -> bool:
-    """Auto-select the fused engine: CUDA device, wide register,
-    complex64 (the only type reaching here), a precision it runs."""
+def _engine(sub, n_qubits, complex_type, device, kwargs) -> str:
+    """'fused', 'indexed' or 'torch' (the per-gate ``statevector`` path)
+    for ``optimize='evolution-<sub>'``; see the module docstring."""
     from hybridq_tpu_torch.simulation.fused_evolver import MIN_FUSED_QUBITS
 
-    if kwargs.get('fused_engine') is not None:
-        return bool(kwargs['fused_engine']) and \
-            n_qubits >= MIN_FUSED_QUBITS
-    if n_qubits < max(20, MIN_FUSED_QUBITS):
-        return False
-    if kwargs.get('matmul_precision', 'highest') not in ('highest',
-                                                         'high'):
-        return False
-    return device.type == 'cuda'
+    if sub == 'fused':
+        return 'fused'
+    if complex_type == np.dtype('complex128'):
+        return 'torch'
+    fused = kwargs.get('fused_engine')
+    if fused and n_qubits >= MIN_FUSED_QUBITS:
+        return 'fused'
+    if sub == 'indexed':
+        return 'indexed'
+    if fused is None and device.type == 'cuda' and n_qubits >= 20 and \
+            kwargs.get('matmul_precision', 'highest') in ('highest',
+                                                          'high'):
+        return ENGINE_ON_CARD
+    return 'torch'
 
 
 def _host_round_trip(payload, psi, qubits):
-    """Run a FunctionalGate on the host copy of ``psi``; returns the new
-    host array."""
-    new_psi, new_order = payload(psi.cpu().numpy(), tuple(qubits))
+    """Run a FunctionalGate on the host copy of ``psi`` (a tensor or a
+    host array); returns the new host array."""
+    if isinstance(psi, torch.Tensor):
+        psi = psi.cpu().numpy()
+    new_psi, new_order = payload(psi, tuple(qubits))
     if tuple(new_order) != tuple(qubits):
         raise RuntimeError("'order' has changed.")
     return new_psi
 
 
 def _evolve_torch(blocks, qubits, qubit_index, initial_state, complex_type,
-                  device):
+                  device, kwargs):
     """Per-gate evolution on a complex ``(2,)*n`` tensor; FunctionalGates
     (measure / projection / message) run on the host between runs of
     matrix blocks."""
@@ -262,6 +274,18 @@ def _evolve_torch(blocks, qubits, qubit_index, initial_state, complex_type,
     return psi
 
 
+def _block_items(payload, complex_type, qubit_index):
+    """``[(U, dense qubit indices), ...]`` of a run of compressed
+    blocks."""
+    items = []
+    for b in payload:
+        g = utils.to_matrix_gate(b, complex_type=complex_type) \
+            if len(b) > 1 else b[0]
+        items.append((np.ascontiguousarray(g.matrix()),
+                      tuple(qubit_index[q] for q in g.qubits)))
+    return items
+
+
 def _evolve_fused(blocks, qubits, qubit_index, initial_state,
                   complex_type, device, kwargs):
     """Fused engine (``fused_evolver.py``): a cost-model-paired schedule
@@ -281,13 +305,9 @@ def _evolve_fused(blocks, qubits, qubit_index, initial_state,
 
     for seg, (kind, payload) in enumerate(_segment_blocks(blocks)):
         if kind == 'mat':
-            items = []
-            for b in payload:
-                g = utils.to_matrix_gate(b, complex_type=complex_type) \
-                    if len(b) > 1 else b[0]
-                items.append((np.ascontiguousarray(g.matrix()),
-                              tuple(qubit_index[q] for q in g.qubits)))
-            items = pair_fused_gates(items, n_qubits, MapSim.of(ev))
+            items = pair_fused_gates(
+                _block_items(payload, complex_type, qubit_index), n_qubits,
+                MapSim.of(ev))
             # The key names the segment too: after a flush the map is
             # canonical again, and block i of a later segment must not
             # hit block i of an earlier one in the prep memo.
@@ -298,6 +318,44 @@ def _evolve_fused(blocks, qubits, qubit_index, initial_state,
             psi = ev.gather(state)
             del state
             state = ev.pack(_host_round_trip(payload, psi, qubits))
+    return ev.gather(state, complex_type)
+
+
+def _evolve_indexed(blocks, qubits, qubit_index, initial_state,
+                    complex_type, device, kwargs):
+    """Straight engine (``kernels.IndexedEvolver``): blocks paired by
+    ``pair_matrix_gates``, one ``apply_bits`` launch each, the state in
+    canonical order throughout.  Device memory holds one container: the
+    input is dropped once packed, and with ``return_numpy_array`` the
+    result goes to the host a chunk at a time (``gather_host``)."""
+    from hybridq_tpu_torch.simulation.kernels import (IndexedEvolver,
+                                                      pair_matrix_gates)
+
+    n_qubits = len(qubits)
+    ev = IndexedEvolver(n_qubits,
+                        precision=kwargs.get('matmul_precision', 'highest'),
+                        device=device)
+    if isinstance(initial_state, str):
+        state = ev.prepare_state(initial_state)
+    else:
+        state = ev.pack(np.asarray(initial_state))
+    del initial_state
+
+    for kind, payload in _segment_blocks(blocks):
+        if kind == 'mat':
+            items = pair_matrix_gates(
+                _block_items(payload, complex_type, qubit_index), n_qubits)
+            # one stacked upload per block size, then one launch a block
+            for U, (_, qs) in zip(ev.preload([U for U, _ in items]), items):
+                state = ev.apply_gate(state, U, qs)
+        else:
+            psi = ev.gather_host(state)
+            del state
+            psi = _host_round_trip(payload, psi, qubits)
+            state = ev.pack(psi)
+            del psi
+    if kwargs['return_numpy_array']:
+        return ev.gather_host(state, complex_type)
     return ev.gather(state, complex_type)
 
 

@@ -21,6 +21,7 @@ from hybridq_tpu_torch.probes import bw, fused_k4, gather
 from hybridq_tpu_torch.simulation import fused_kernels as fk
 from hybridq_tpu_torch.simulation import row_kernels as rk
 from hybridq_tpu_torch.simulation.fused_evolver import _SW, FusedEvolver
+from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
 
 ATOL = 1e-5
 FUSED_CLASSES = [0, 1, 2, 3, 4]
@@ -175,6 +176,53 @@ def test_cuda_fused_below_one_tile(n, bits, kv, cuda):
     fk.apply_fused_plain(b, U, bits)
     torch.cuda.synchronize()
     assert (a - b).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize('k, low', [(k, low) for k in range(1, 9)
+                                    for low in (0, 1, 2, 7)])
+def test_cuda_apply_bits_matches_plain(k, low, cuda):
+    """The straight route's ``apply_bits`` at k = 1..8 with the lowest gate
+    bit at 0, 1, 2 or 7, at n = 20: one launch, no plain call."""
+    rng = np.random.default_rng([k, low])
+    n = 20
+    bits = [low] + [int(b) for b in rng.choice(range(low + 1, n), k - 1,
+                                               replace=False)]
+    rng.shuffle(bits)
+    U = torch.as_tensor(_rand_u(k, rng), dtype=torch.complex64,
+                        device=cuda)
+    st = _rand_state(n, rng, cuda)
+    a, b = st.clone(), st.clone()
+    fk.reset_counts()
+    fk.apply_bits(a, U, bits)
+    assert fk.counts()['apply_bits'] == 1
+    assert fk.counts()['apply_bits_plain'] == 0
+    fk.apply_bits_plain(b, U, bits)
+    torch.cuda.synchronize()
+    assert (a - b).abs().max().item() <= ATOL
+
+
+def test_cuda_indexed_evolver_matches_cpu(cuda):
+    """The straight engine on the card and on the host: same gates, same
+    container within f32 rounding; on the card each operand comes from
+    ``preload``, as ``simulate`` passes it."""
+    n = 16
+    rng = np.random.default_rng(8)
+    ev_c = IndexedEvolver(n, device=cuda)
+    ev_h = IndexedEvolver(n, device='cpu')
+    s_c, s_h = ev_c.prepare_state('+' * n), ev_h.prepare_state('+' * n)
+    for _ in range(16):
+        k = int(rng.integers(1, 9))
+        qs = tuple(int(q) for q in rng.choice(n, k, replace=False))
+        U = _rand_u(k, rng)
+        s_c = ev_c.apply_gate(s_c, ev_c.preload([U])[0], qs)
+        s_h = ev_h.apply_gate(s_h, U, qs)
+    assert (s_c.cpu() - s_h).abs().max().item() <= ATOL
+    want = ev_h.gather(s_h).numpy()
+    for chunk in (2 ** 24, 2 ** 10, 3000):     # one chunk; many, staged
+        np.testing.assert_allclose(ev_c.gather_host(s_c, chunk=chunk), want,
+                                   atol=ATOL)
+    np.testing.assert_allclose(
+        ev_c.gather_host(s_c, 'complex128', chunk=2 ** 10), want, atol=ATOL)
 
 
 @pytest.mark.parametrize('c', [3, 4])

@@ -112,8 +112,10 @@ def test_wrappers_count_plain_calls_on_cpu(seed):
     fk.reset_counts()
     fk.apply_fused(st, _rand_u(2, rng), [8, 13])
     fk.apply_swap(st, _rand_u(2, rng), [3, 9], [12])
-    assert fk.counts() == {'fused_apply': 0, 'swap_apply': 0,
-                           'factored_apply': 0, 'apply_fused_plain': 1,
+    fk.apply_bits(st, _rand_u(2, rng), [0, 13])
+    assert fk.counts() == {'apply_bits': 0, 'fused_apply': 0,
+                           'swap_apply': 0, 'factored_apply': 0,
+                           'apply_bits_plain': 1, 'apply_fused_plain': 1,
                            'apply_swap_plain': 1, 'apply_factored_plain': 0}
 
 

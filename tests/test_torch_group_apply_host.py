@@ -362,6 +362,20 @@ def test_group_kernel_low_bits(group_apply, bits, lane, victims, n):
     _container_case(group_apply, n, bits, lane, victims, seed=n + len(bits))
 
 
+@pytest.mark.parametrize('k, low', [(k, low) for k in range(1, MAX_COLUMN_K + 1)
+                                    for low in range(3)])
+def test_column_kernel_low_bits(group_apply, k, low):
+    """``column_apply_kernel`` with the lowest gate bit at 0, 1 or 2 (a
+    warp's loads then touch a half or a quarter of each sector): the
+    straight route's ``apply_bits`` on a DM-like register, at n = 12."""
+    n = 12
+    rng = np.random.default_rng([k, low])
+    bits = [low] + [int(b) for b in rng.choice(range(low + 1, n), k - 1,
+                                               replace=False)]
+    rng.shuffle(bits)
+    _container_case(group_apply, n, bits, [], [], seed=k + 10 * low)
+
+
 @pytest.mark.parametrize('k, kl', [(1, 1), (3, 1), (4, 2), (5, 2)])
 def test_column_kernel_matches_swap_plain(group_apply, k, kl):
     """The engine's swap shape, through ``apply_swap_plain`` itself: lane

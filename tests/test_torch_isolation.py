@@ -47,6 +47,8 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, hybridq_tpu_torch, hybridq_tpu_torch.convert, "
             "hybridq_tpu_torch.extras.random, "
             "hybridq_tpu_torch.simulation.fused_evolver, "
+            "hybridq_tpu_torch.simulation.kernels, hybridq_tpu_torch.dm, "
+            "hybridq_tpu_torch.noise, hybridq_tpu_torch.noise.channel, "
             "hybridq_tpu_torch.simulation.row_kernels, "
             "hybridq_tpu_torch.probes.fused_k4, "
             "hybridq_tpu_torch.probes.bw, hybridq_tpu_torch.probes.gather, "
@@ -96,11 +98,9 @@ def test_simulate_needs_a_card_unless_told(monkeypatch):
 
 
 @pytest.mark.parametrize('optimize, complex_type, item', [
-    ('evolution-indexed', 'complex64', 'item 6'),
     ('evolution-einsum', 'complex64', 'item 4a'),
     ('evolution-sharded', 'complex64', 'item 11'),
     ('tn', 'complex64', 'item 10'),
-    ('evolution', 'complex128', 'item 2a'),
 ])
 def test_unported_engines_name_their_roadmap_item(optimize, complex_type,
                                                   item):
@@ -111,3 +111,45 @@ def test_unported_engines_name_their_roadmap_item(optimize, complex_type,
     with pytest.raises(NotImplementedError, match=item):
         simulate(c, initial_state='0', optimize=optimize,
                  complex_type=complex_type, device='cpu')
+
+
+@pytest.mark.parametrize('optimize, complex_type, engine', [
+    ('evolution-indexed', 'complex64', 'indexed'),
+    ('evolution', 'complex128', 'torch'),
+])
+def test_ported_engines_run_on_the_host(optimize, complex_type, engine):
+    """The straight engine and complex128 evolution, once named by the
+    test above as not ported, now run on the host and give the Bell
+    state."""
+    from hybridq_tpu_torch import Gate
+    from hybridq_tpu_torch.simulation import simulate
+
+    c = [Gate('H', qubits=[0]), Gate('CX', qubits=[0, 1])]
+    psi, info = simulate(c, initial_state='00', optimize=optimize,
+                         complex_type=complex_type, device='cpu',
+                         return_info=True)
+    assert info['engine'] == engine and psi.dtype == np.dtype(complex_type)
+    np.testing.assert_allclose(psi.reshape(-1),
+                               np.array([1, 0, 0, 1]) / np.sqrt(2),
+                               atol=1e-7 if engine == 'indexed' else 1e-15)
+
+
+@pytest.mark.parametrize('entry', ['state_from_reference', 'IndexedEvolver'])
+def test_entry_points_need_a_card_unless_told(entry, monkeypatch):
+    """``state_from_reference`` and ``IndexedEvolver`` default to the card
+    like ``simulate``: without one they raise, naming ``device='cpu'``."""
+    from hybridq_tpu_torch.convert import state_from_reference
+    from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    pair = np.zeros((2, 2 ** 3), dtype=np.float32)
+    pair[0, 0] = 1
+    make = {'state_from_reference': lambda **kw: state_from_reference(
+                pair, **kw)[0],
+            'IndexedEvolver': lambda **kw: IndexedEvolver(
+                3, **kw).prepare_state('000')}[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+    state = make(device='cpu')
+    assert state.device.type == 'cpu'
+    np.testing.assert_array_equal(state.numpy(), pair.reshape(-1))
