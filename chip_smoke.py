@@ -68,6 +68,22 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              seconds, launches and peak recorded); and the same
              construction at 12 qubits in complex64 against complex128 on
              the card (max|d| / max|amp| <= 3e-6).
+  tn         the tensor-network engine: ``simulate(get_rqc(26, 150),
+             optimize='tn')`` with 10 open final qubits on the card
+             against the matching amplitudes of complex128 ``'evolution'``
+             on the card (max|d|/rms <= 1e-4), and again sliced to a
+             widest intermediate of 2^12; the committed Sycamore-53
+             plans (``scripts/_plan_cache``, read by
+             ``convert.load_reference_plan``) through
+             ``SlicedContractor.contract_torch``: the depth-12 plan warm
+             over about 30 s of slices (seconds a slice, TFLOP/s, the
+             bound of a slice, device peak, the projected full
+             amplitude; then ``torch.profiler`` over 4 slices: kernel time
+             by kind and the device's busy share), two slices in complex64
+             against complex128 and again with the global TF32 flags on
+             (no change allowed), and one slice of the depth-20 plan.
+             Fails if the native path search did not build, or if a
+             contraction step ran off the card.  Runs last.
   probes     the card's counterparts of the bandwidth and dot probes
              (``scripts/probe_pallas_bw.py``, ``probe_pallas_gather.py``)
              at the scripts' 2 GiB of f32: first ``probes.bw.main()`` and
@@ -146,6 +162,15 @@ PAIRED_SLACK = 1.1         # paired pass time over unpaired, at most
 MAX_COLUMN_K = 5           # column_apply_kernel: k <= 5; group_apply_kernel
 LOG_TILE = 13              # above, on tiles of 2^13 amplitudes
 NORM_TOL = 1e-4
+N_TN, TN_GATES, TN_OPEN = 26, 150, 10   # tn: get_rqc(26, 150), 10 open legs
+TN_MAX_TIME = 10           # simulate_tn's path-search budget (s)
+TN_SLICED_WIDTH = 2 ** 12  # max_largest_intermediate that forces slices
+TN_TOL = 1e-4              # max|d|/rms, TN against complex128 evolution
+TN_SECONDS = 30.0          # timed slices of the d12 plan: about this long
+TN_PLANS = ('syc53_d12_s0_t26.pkl', 'syc53_d20_s0_t26.pkl')
+TN_PROFILE_SLICES = 4      # slices of the d12 plan under torch.profiler
+TN_TF32_TOL = 1e-6         # |change| / |amp| when the global TF32 flags
+                           # are turned on (one TF32 pass gives ~1e-3)
 # Published peaks (NVIDIA data sheets, dense): bytes/s, fp32 FLOP/s outside
 # the tensor cores, TF32 FLOP/s on the tensor cores.
 _PEAKS = {'H100 PCIe': (2.0e12, 51.2e12, 378e12),
@@ -517,7 +542,7 @@ def numpy_oracle(circuit, qubits):
 # the kernels each engine of simulate launches
 ENGINE_KERNELS = {'indexed': ('apply_bits',),
                   'fused': ('fused_apply', 'swap_apply'),
-                  'torch': ()}
+                  'torch': (), 'einsum': ()}
 
 
 def check_engine_launches(where, engine, launches):
@@ -538,7 +563,7 @@ def phase_parity(out):
 
     n = N_PARITY
     runs = [('evolution', 'complex64'), ('evolution-fused', 'complex64'),
-            ('evolution', 'complex128')]
+            ('evolution-einsum', 'complex64'), ('evolution', 'complex128')]
     for depth in PARITY_GATES:
         np.random.seed(SEED)
         c = Circuit([Gate('H', qubits=[q]) for q in range(n)]) + \
@@ -1216,6 +1241,268 @@ def phase_dm(out):
           f"{d / amax:.3g} > {PARITY_TOL}")
 
 
+def tn_costs(sc, name):
+    """Per-slice work of a ``SlicedContractor``'s plan: complex MACs
+    (``SliceCost.sliced_flops``: every step at its sliced size), those of
+    the batched steps alone (the slice-invariant subtrees run once a
+    call), the bytes that the batched steps write and read once each,
+    and the least time (ms) of a slice: the larger of 8 real flops per
+    MAC at the fp32 peak and those bytes at the memory rate."""
+    tree, sl = sc.plan.tree, sc.plan.sliced_set
+    batched, steps = sc.schedule()
+    macs = tree.total_flops(sl)
+    macs_batched = sum(tree.node_flops(v, sl) for v, *_ in steps
+                       if batched[v])
+    nbytes = sum(2 * 8 * tree.node_size(v, sl) for v, *_ in steps
+                 if batched[v])
+    bw, flops, _ = peaks(name)
+    t_ops, t_bytes = 8 * macs / flops, nbytes / bw
+    return {'macs_per_slice': macs, 'macs_per_slice_batched': macs_batched,
+            'batched_steps': sum(batched[v] for v, *_ in steps),
+            'steps': len(steps), 'bytes_per_slice': nbytes,
+            'ops_bound_ms': t_ops * 1e3, 'bytes_bound_ms': t_bytes * 1e3,
+            'bound_ms': max(t_ops, t_bytes) * 1e3,
+            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
+
+
+def timed_slices(sc, r, **kw):
+    """``contract_torch`` over the slice range ``r`` on the card: the
+    result, its seconds and the device peak (GiB) of the call."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    amp = sc.contract_torch(device='cuda', slice_range=r, **kw)
+    dt = time.perf_counter() - t0
+    return amp, dt, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def tn_profile(sc, r):
+    """Where a range of slices spends the card's time: ``torch.profiler``
+    over ``contract_torch``, the device kernels' time by kind (the
+    cuBLAS products, copies such as ``tensordot``'s permutes, the
+    rest), the busy share (the union of kernel intervals over the
+    call's wall time) and the five costliest kernels.  None when the
+    trace holds no device kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sc.contract_torch(device='cuda', slice_range=r)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_kind, by_name = {}, {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        low = e.name.lower()
+        kind = ('gemm' if any(w in low for w in ('gemm', 'cutlass', 'sm90',
+                                                  'xmma'))
+                else 'copy' if any(w in low for w in ('copy', 'elementwise'))
+                else 'other')
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {'slices': list(r), 'wall_ms': wall * 1e3,
+            'device_busy_ms': busy / 1e3,
+            'device_busy_share': busy / 1e6 / wall,
+            'kernel_ms_by_kind': by_kind, 'kernels': len(kernels),
+            'top_kernels_ms': top}
+
+
+def phase_tn(out, name):
+    """The tensor-network engine (``simulation/tn``) on the card: a
+    26-qubit ``simulate(optimize='tn')`` against complex128 evolution, the
+    committed Sycamore-53 plans timed, and the executor's precision."""
+    import torch
+    from hybridq_tpu_torch import native
+    from hybridq_tpu_torch.convert import load_reference_plan
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.simulation import simulate
+    from hybridq_tpu_torch.simulation.tn import contract
+
+    card = card_power()
+    check(native.hgp_available(), "tn: the native path-search library "
+          "did not build (g++)")
+
+    # Every contraction step must run on the card, none on the host.
+    steps = {'n': 0}
+    step = contract._step
+
+    def on_card(x, y, op):
+        if x.device.type != 'cuda' or y.device.type != 'cuda':
+            raise PhaseError(f"tn: a step ran on {x.device}/{y.device}")
+        steps['n'] += 1
+        return step(x, y, op)
+
+    def no_host(*args, **kwargs):
+        raise PhaseError("tn: the numpy executor ran")
+
+    contract_np = contract.SlicedContractor.contract_np
+    contract._step = on_card
+    contract.SlicedContractor.contract_np = no_host
+    try:
+        # Correctness: amplitudes with TN_OPEN final legs open.
+        n = N_TN
+        np.random.seed(SEED)
+        c = get_rqc(n, TN_GATES, indexes=list(range(n)))
+        final = '.' * TN_OPEN + '0' * (n - TN_OPEN)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got, info = simulate(c, initial_state='0' * n, final_state=final,
+                             optimize='tn', max_time=TN_MAX_TIME,
+                             return_info=True)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_steps = steps['n']
+        psi, einfo = simulate(c, initial_state='0' * n,
+                              complex_type='complex128', return_info=True)
+        want = psi[(slice(None),) * TN_OPEN + (0,) * (n - TN_OPEN)]
+        del psi
+        torch.cuda.empty_cache()
+        rms = float(np.sqrt(np.mean(np.abs(want) ** 2)))
+        d = float(np.abs(got.astype(np.complex128) - want).max())
+        emit({'phase': 'tn', 'part': 'simulate', 'n': n, 'gates': len(c),
+              'open': TN_OPEN, 'shape': list(got.shape),
+              'dtype': str(got.dtype), 'seconds': dt,
+              'contract_seconds': info['runtime (s)'],
+              'log2_flops': float(np.log2(max(info['flops'], 1))),
+              'log2_largest': float(np.log2(info['largest_intermediate'])),
+              'n_slices': info['n_slices'], 'steps_on_card': n_steps,
+              'peak_gib': peak, 'reference': einfo['engine'],
+              'max_abs_err': d, 'rel_err': d / rms, 'tol': TN_TOL,
+              'card': card}, out)
+        check(got.shape == (2,) * TN_OPEN and got.dtype == np.complex64,
+              f"tn: result {got.shape} {got.dtype}")
+        check(np.isfinite(got).all(), "tn: non-finite amplitudes")
+        check(n_steps > 0, "tn: no contraction step ran")
+        check(d / rms <= TN_TOL, f"tn: max|d|/rms {d / rms:.3g} > {TN_TOL}")
+
+        # The same amplitudes sliced: the batched steps on the card.
+        steps['n'] = 0
+        got, info = simulate(c, initial_state='0' * n, final_state=final,
+                             optimize='tn', max_time=TN_MAX_TIME,
+                             max_largest_intermediate=TN_SLICED_WIDTH,
+                             return_info=True)
+        d = float(np.abs(got.astype(np.complex128) - want).max())
+        emit({'phase': 'tn', 'part': 'simulate_sliced', 'n': n,
+              'max_largest_intermediate': TN_SLICED_WIDTH,
+              'n_slices': info['n_slices'],
+              'log2_largest': float(np.log2(info['largest_intermediate'])),
+              'contract_seconds': info['runtime (s)'],
+              'steps_on_card': steps['n'], 'max_abs_err': d,
+              'rel_err': d / rms, 'tol': TN_TOL, 'card': card}, out)
+        check(info['n_slices'] > 1, "tn: the sliced run made no slices")
+        check(d / rms <= TN_TOL, f"tn: sliced max|d|/rms {d / rms:.3g} > "
+              f"{TN_TOL}")
+
+        # Workload: the committed Sycamore-53 plans.
+        here = os.path.dirname(os.path.abspath(__file__))
+        plans = os.path.join(here, 'scripts', '_plan_cache')
+        net, oo, tree, sliced, cost = load_reference_plan(
+            os.path.join(plans, TN_PLANS[0]))
+        plan = contract.ContractionPlan(tree, sliced)
+        sc = contract.SlicedContractor(plan, net.tensors, oo)
+        costs = tn_costs(sc, name)
+        timed_slices(sc, (0, 1))                      # warm
+        _, dt2, _ = timed_slices(sc, (1, 3))
+        count = int(max(2, min(sc.nslices - 3, TN_SECONDS / (dt2 / 2))))
+        steps['n'] = 0
+        amp, dt, peak = timed_slices(sc, (3, 3 + count))
+        per = dt / count
+        emit({'phase': 'tn', 'part': 'workload', 'plan': TN_PLANS[0],
+              'n_slices': sc.nslices, 'timed_slices': count, 'seconds': dt,
+              's_per_slice': per, 'ms_per_slice': per * 1e3,
+              'tflops': 8 * costs['macs_per_slice'] / per / 1e12,
+              'fp32_peak_tflops': peaks(name)[1] / 1e12,
+              'of_bound': costs['bound_ms'] / (per * 1e3),
+              'peak_gib': peak, 'steps_run': steps['n'],
+              'projected_full_s': per * sc.nslices,
+              'log2_largest': float(np.log2(cost.max_size)),
+              **costs, 'card': card}, out)
+        check(np.isfinite(amp).all(), "tn: non-finite partial sum")
+        emit({'phase': 'tn', 'part': 'profile', 'plan': TN_PLANS[0],
+              'profile': tn_profile(sc, (3, 3 + TN_PROFILE_SLICES)),
+              'card': card}, out)
+
+        # Precision: two slices in complex64 and complex128, then
+        # complex64 again with the global TF32 flags on.
+        a64, _, _ = timed_slices(sc, (0, 2))
+        sc128 = contract.SlicedContractor(plan, net.tensors, oo,
+                                          complex_type='complex128')
+        a128, _, _ = timed_slices(sc128, (0, 2))
+        del sc128
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            a64_tf32, _, _ = timed_slices(sc, (0, 2))
+            g = torch.Generator(device='cuda')
+            g.manual_seed(SEED)
+            x = torch.randn(4096, 4096, dtype=torch.complex64,
+                            device='cuda', generator=g)
+            m_tf32 = x @ x
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        m_ieee = x @ x
+        m_ref = (x.to(torch.complex128) @ x.to(torch.complex128))
+        scale = float(m_ref.abs().max())
+        mm = {'tf32': float((m_tf32 - m_ref).abs().max()) / scale,
+              'ieee': float((m_ieee - m_ref).abs().max()) / scale}
+        del x, m_tf32, m_ieee, m_ref
+        ref = float(np.abs(a128).max())
+        rel64 = float(np.abs(a64 - a128).max()) / ref
+        rel_tf32 = float(np.abs(a64_tf32 - a64).max()) / ref
+        emit({'phase': 'tn', 'part': 'precision', 'plan': TN_PLANS[0],
+              'slices': [0, 2], 'complex64_vs_complex128': rel64,
+              'tf32_flags_on_change': rel_tf32,
+              'matmul_4096_rel_err': mm, 'card': card}, out)
+        check(rel_tf32 <= TN_TF32_TOL, f"tn: the global TF32 flags changed "
+              f"the result by {rel_tf32:.3g}")
+        del sc, net, tree, plan
+        torch.cuda.empty_cache()
+
+        # One slice of the depth-20 plan.
+        net, oo, tree, sliced, cost = load_reference_plan(
+            os.path.join(plans, TN_PLANS[1]))
+        sc = contract.SlicedContractor(contract.ContractionPlan(tree, sliced),
+                                       net.tensors, oo)
+        costs = tn_costs(sc, name)
+        timed_slices(sc, (0, 1))                      # warm
+        amp, dt, peak = timed_slices(sc, (1, 2))
+        emit({'phase': 'tn', 'part': 'workload', 'plan': TN_PLANS[1],
+              'n_slices': sc.nslices, 'timed_slices': 1, 's_per_slice': dt,
+              'ms_per_slice': dt * 1e3,
+              'tflops': 8 * costs['macs_per_slice'] / dt / 1e12,
+              'of_bound': costs['bound_ms'] / (dt * 1e3), 'peak_gib': peak,
+              'projected_full_s': dt * sc.nslices,
+              'log2_largest': float(np.log2(cost.max_size)),
+              **costs, 'card': card}, out)
+        check(np.isfinite(amp).all(), "tn: non-finite d20 slice")
+        del sc, net, tree
+        torch.cuda.empty_cache()
+    finally:
+        contract._step = step
+        contract.SlicedContractor.contract_np = contract_np
+    emit({'phase': 'tn', 'ok': True, 'card': card}, out)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default=None,
@@ -1246,6 +1533,7 @@ def main(argv=None):
         probes = phase_probes(out, name)
         main = phase_main_path(out, name)
         phase_dm(out)
+        phase_tn(out, name)
         emit({'kernels': main + paths + probes}, out)
         print(card_power(), flush=True)
         # count: the one card the run used (device 0)

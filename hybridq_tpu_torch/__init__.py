@@ -12,6 +12,9 @@ Engines:
     plain PyTorch)
   * density matrices        — `hybridq_tpu_torch.dm.simulate`, with the
     noise channels of `hybridq_tpu_torch.noise`
+  * tensor networks         — `simulate(..., optimize='tn')`: host path
+    search and slicing (`simulation.tn`, the C++ of
+    `hybridq_tpu_torch.native`), contraction on the card
 
 Kernels off the engine's path: `simulation.apply_factored`,
 `simulation.apply_gate_rows` and the probe `probes.apply_fused_k4`.

@@ -1,7 +1,10 @@
 """Carry state between ``hybridq_tpu`` and this port.
 
 The system has no weights: its state is the engines' split container (re
-half, then im half) and, for the fused engine, its slot map.  The JAX
+half, then im half) and, for the fused engine, its slot map; for the
+tensor-network engine, the network and its contraction tree (and the
+plans that ``scripts/_plan_cache/*.pkl`` hold, pickled by the JAX
+package).  The JAX
 fused engine keeps the container as a ``[2^(n-6), 128]`` f32 array and
 JAX's ``IndexedEvolver`` hands out a flushed ``[2, 2^n]`` pair
 (``unpack_host``); both are reshapes of the port's flat tensor.  Both
@@ -11,6 +14,7 @@ package.
 
 from __future__ import annotations
 
+import pickle
 from typing import Sequence
 
 import numpy as np
@@ -21,7 +25,8 @@ from hybridq_tpu_torch.gate import MatrixGate
 from hybridq_tpu_torch.simulation._device import resolve_device
 
 __all__ = ['state_from_reference', 'state_to_reference',
-           'pair_to_reference', 'circuit_from_matrices']
+           'pair_to_reference', 'circuit_from_matrices',
+           'tn_from_reference', 'load_reference_plan']
 
 
 def _check_phys(phys, n):
@@ -82,3 +87,49 @@ def circuit_from_matrices(items) -> Circuit:
     that both packages can run the same gates."""
     return Circuit(MatrixGate(np.asarray(U)).on(list(qs))
                    for U, qs in items)
+
+
+def tn_from_reference(net, tree=None):
+    """A JAX ``TensorNetwork`` (any object whose ``.tensors`` have
+    ``.inds`` and ``.data``) -> the port's ``TensorNetwork``; with
+    ``tree`` (a JAX ``ContractionTree``: ``inputs``, ``output``,
+    ``size_dict``, ``children``, ``root``), also the port's tree with the
+    same nodes, so both packages can contract the identical tree.
+    Returns the network, or ``(network, tree)``."""
+    from hybridq_tpu_torch.simulation.tn.network import (Tensor,
+                                                         TensorNetwork)
+    from hybridq_tpu_torch.simulation.tn.path import ContractionTree
+
+    out = TensorNetwork([Tensor(np.array(t.data), tuple(t.inds))
+                         for t in net.tensors])
+    if tree is None:
+        return out
+    return out, ContractionTree.from_children(
+        tree.inputs, tree.output, tree.size_dict, tree.children, tree.root)
+
+
+# the JAX package's modules whose pickled classes the port restores
+_REFERENCE_MODULES = {
+    f'hybridq_tpu.simulation.tn.{m}': f'hybridq_tpu_torch.simulation.tn.{m}'
+    for m in ('network', 'path', 'slicer')}
+
+
+class _ReferenceUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module in _REFERENCE_MODULES:
+            module = _REFERENCE_MODULES[module]
+        elif module == 'hybridq_tpu' or module.startswith('hybridq_tpu.'):
+            raise pickle.UnpicklingError(
+                f"{module}.{name} has no counterpart in hybridq_tpu_torch")
+        return super().find_class(module, name)
+
+
+def load_reference_plan(path):
+    """Unpickle a plan that the JAX package wrote (``scripts/bench_tn.py``
+    writes ``(net, output_order, tree, sliced, cost)`` into
+    ``scripts/_plan_cache``) into the port's ``TensorNetwork``,
+    ``ContractionTree`` and ``SliceCost``, without importing
+    ``hybridq_tpu``; any other ``hybridq_tpu`` class is refused.  Read
+    only trusted files: unpickling runs what the file names."""
+    with open(path, 'rb') as f:
+        return _ReferenceUnpickler(f).load()

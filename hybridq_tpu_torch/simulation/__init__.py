@@ -1,6 +1,7 @@
 """Simulation engines: state-vector evolution on CUDA kernels (the
 straight engine and the fused one) and on plain PyTorch (small registers,
-complex128, CPU); the gate kernels' public functions beside the
+complex128, ``torch.einsum``, CPU), and tensor-network contraction
+(``simulation.tn``); the gate kernels' public functions beside the
 engines'."""
 
 from hybridq_tpu_torch.simulation.prepare import prepare_state

@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ['resolve_device']
+__all__ = ['resolve_device', 'full_precision_matmul']
 
 
 def resolve_device(device, what: str = 'simulate()') -> torch.device:
@@ -16,3 +18,16 @@ def resolve_device(device, what: str = 'simulate()') -> torch.device:
                            "and none is available; pass device='cpu' to "
                            "run on the host")
     return device
+
+
+@contextlib.contextmanager
+def full_precision_matmul():
+    """Run float32 (and complex64) matmuls without TF32 inside the block,
+    whatever the caller's flags, and restore the flags after it (the
+    JAX package forces ``precision='highest'`` the same way)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

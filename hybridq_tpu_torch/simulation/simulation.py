@@ -1,7 +1,7 @@
 """Engine dispatch + state-vector evolution front-end.
 
-The counterpart of ``hybridq_tpu/simulation/simulation.py`` for the
-``optimize='evolution'`` family (its ``:204-240``):
+The counterpart of ``hybridq_tpu/simulation/simulation.py`` (its
+``:204-240`` for the ``optimize='evolution'`` family):
 
   * ``'evolution'`` / ``'evolution-tpu'`` / ``'evolution-hybridq'``: the
     native engine.  On a CUDA device with >= 20 qubits in complex64 it is
@@ -15,11 +15,16 @@ The counterpart of ``hybridq_tpu/simulation/simulation.py`` for the
     complex128 on the device (JAX sends it to host numpy einsum, the
     reference), except under ``'evolution-fused'``, which runs its f32
     kernels and gathers the result to complex128, as JAX does.
+  * ``'evolution-einsum[-<opt>]'``: one ``torch.einsum`` a block.
+  * any other ``optimize`` (``'tn'``, or ``(info, tree)`` with a
+    ``TensorNetwork`` as ``circuit``): the sliced tensor-network engine
+    (``tn/simulate.py``), planned on the host and contracted on the
+    device; ``backend='numpy'`` contracts on the host with numpy.
   * ``expectation_value(state, op, qubits_order)``.
 
 ``device=None`` means ``'cuda'``; without a CUDA device ``simulate``
 raises (pass ``device='cpu'`` to run on the host, as the tests do).  The
-engines not ported yet raise ``NotImplementedError`` naming the
+sharded engines, not ported yet, raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
 """
 
@@ -38,10 +43,7 @@ from hybridq_tpu_torch.simulation._device import resolve_device
 __all__ = ['simulate', 'expectation_value']
 
 _NOT_PORTED = {
-    'einsum': "ROADMAP.md Queue 1, item 4a (_evolve_einsum on "
-              "torch.einsum)",
     'sharded': "ROADMAP.md Queue 1, item 11 (sharded engines)",
-    'tn': "ROADMAP.md Queue 1, item 10 (tensor-network contraction)",
 }
 _COMPLEX_TYPES = (np.dtype('complex64'), np.dtype('complex128'))
 
@@ -114,25 +116,42 @@ def simulate(circuit, initial_state=None, final_state=None,
              simplify=True, remove_id_gates: bool = True, use_mpi=None,
              atol: float = 1e-8, verbose: bool = False, device=None,
              **kwargs):
-    """Simulate a circuit by state-vector evolution (see the module
-    docstring).  Returns a numpy array by default, or the torch tensor on
-    ``device`` with ``return_numpy_array=False``."""
+    """Simulate a circuit by state-vector evolution or tensor-network
+    contraction (see the module docstring).  Evolution returns a numpy
+    array by default, or the torch tensor on ``device`` with
+    ``return_numpy_array=False``; the TN engine returns a numpy array,
+    or ``(net, (info, tree))`` with ``tensor_only=True``."""
     kwargs.setdefault('allow_sampling', False)
     kwargs.setdefault('sampling_seed', None)
 
-    if not (isinstance(optimize, str) and 'evolution' in optimize):
-        raise _not_ported('tn')
-    if tensor_only:
+    evolution = isinstance(optimize, str) and 'evolution' in optimize
+    if tensor_only and evolution:
         raise ValueError(
             f"'tensor_only' is not supported for optimize={optimize}")
     if np.dtype(complex_type) not in _COMPLEX_TYPES:
         raise ValueError(f"complex_type must be complex64 or complex128, "
                          f"got {complex_type}")
-    device = resolve_device(device)
+    if evolution or backend != 'numpy':
+        device = resolve_device(device)
 
-    circuit, qubits, initial_state, final_state = _preprocess_circuit(
-        circuit, initial_state, final_state, simplify, remove_id_gates,
-        atol, verbose, kwargs['allow_sampling'], kwargs['sampling_seed'])
+    from hybridq_tpu_torch.simulation.tn.network import TensorNetwork
+    if not isinstance(circuit, TensorNetwork):
+        circuit, qubits, initial_state, final_state = _preprocess_circuit(
+            circuit, initial_state, final_state, simplify,
+            remove_id_gates, atol, verbose, kwargs['allow_sampling'],
+            kwargs['sampling_seed'])
+    elif evolution:
+        raise ValueError("a TensorNetwork needs optimize=(info, tree) or "
+                         "(info, ContractionPlan), not an evolution engine")
+
+    if not evolution:
+        # Tensor-network contraction (host planning, contraction on
+        # ``device``; ``backend='numpy'`` runs the plain executor).
+        from hybridq_tpu_torch.simulation.tn import simulate_tn
+        kwargs.setdefault('compress', 2)
+        return simulate_tn(circuit, initial_state, final_state, optimize,
+                           backend, complex_type, tensor_only, verbose,
+                           device=device, **kwargs)
 
     sub = '-'.join(optimize.split('-')[1:]) or 'tpu'
     if sub == 'hybridq':  # reference alias for its native engine
@@ -180,9 +199,10 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
     if initial_state is None:
         raise ValueError(
             "'initial_state' must be specified for optimize='evolution'.")
-    if sub.split('-')[0] in ('einsum', 'sharded'):
-        raise _not_ported(sub.split('-')[0])
-    if sub not in ('tpu', 'fused', 'indexed'):
+    if sub.split('-')[0] == 'sharded':
+        raise _not_ported('sharded')
+    if sub not in ('tpu', 'fused', 'indexed') and \
+            sub.split('-')[0] != 'einsum':
         raise ValueError(f"optimize='evolution-{sub}' not implemented.")
 
     complex_type = np.dtype(complex_type)
@@ -201,7 +221,7 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
     engine = _engine(sub, n_qubits, complex_type, device, kwargs)
     info['engine'] = engine
     evolve = {'fused': _evolve_fused, 'indexed': _evolve_indexed,
-              'torch': _evolve_torch}[engine]
+              'torch': _evolve_torch, 'einsum': _evolve_einsum}[engine]
     t0 = _time_mod.time()
     psi = evolve(blocks, qubits, qubit_index, initial_state, complex_type,
                  device, kwargs)
@@ -218,12 +238,15 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
 
 
 def _engine(sub, n_qubits, complex_type, device, kwargs) -> str:
-    """'fused', 'indexed' or 'torch' (the per-gate ``statevector`` path)
-    for ``optimize='evolution-<sub>'``; see the module docstring."""
+    """'fused', 'indexed', 'einsum' or 'torch' (the per-gate
+    ``statevector`` path) for ``optimize='evolution-<sub>'``; see the
+    module docstring."""
     from hybridq_tpu_torch.simulation.fused_evolver import MIN_FUSED_QUBITS
 
     if sub == 'fused':
         return 'fused'
+    if sub.split('-')[0] == 'einsum':
+        return 'einsum'
     if complex_type == np.dtype('complex128'):
         return 'torch'
     fused = kwargs.get('fused_engine')
@@ -271,6 +294,58 @@ def _evolve_torch(blocks, qubits, qubit_index, initial_state, complex_type,
             psi = torch.as_tensor(
                 np.asarray(_host_round_trip(payload, psi, qubits),
                            dtype=complex_type), device=device)
+    return psi
+
+
+def _evolve_einsum(blocks, qubits, qubit_index, initial_state,
+                   complex_type, device, kwargs):
+    """``'evolution-einsum[-<opt>]'``: one ``torch.einsum`` a compressed
+    block on a complex ``(2,)*n`` tensor, with subscripts built by hand
+    as the JAX engine builds them (``hybridq_tpu/simulation/
+    simulation.py:463-522``): the state's axes are labels ``0..n-1``,
+    the block's new axes ``n..n+k-1``.  ``<opt>`` names opt_einsum's
+    optimizer there; a product of two operands has one order, so it is
+    accepted and unused.  TF32 is off inside, as JAX forces 'highest'.
+    FunctionalGates run on the host between runs of matrix blocks."""
+    from hybridq_tpu_torch.simulation._device import full_precision_matmul
+    from hybridq_tpu_torch.simulation.prepare import prepare_state
+
+    n = len(qubits)
+    segments = [(kind, payload if kind == 'fun' else [
+        utils.to_matrix_gate(b, complex_type=complex_type)
+        if len(b) > 1 else b[0] for b in payload])
+        for kind, payload in _segment_blocks(blocks)]
+    k = max((len(g.qubits) for kind, gates in segments if kind == 'mat'
+             for g in gates), default=0)
+    if n + k > 52:
+        raise ValueError(
+            f"'evolution-einsum' needs n + k = {n + k} einsum labels for "
+            f"blocks of k = {k} qubits on n = {n}; torch.einsum takes at "
+            "most 52")
+    if isinstance(initial_state, str):
+        initial_state = prepare_state(initial_state,
+                                      complex_type=complex_type)
+    psi = torch.as_tensor(np.asarray(initial_state, dtype=complex_type),
+                          device=device)
+    state = list(range(n))
+    with full_precision_matmul():
+        for kind, payload in segments:
+            if kind == 'fun':
+                psi = torch.as_tensor(
+                    np.asarray(_host_round_trip(payload, psi, qubits),
+                               dtype=complex_type), device=device)
+                continue
+            for g in payload:
+                axes = [qubit_index[q] for q in g.qubits]
+                k = len(axes)
+                U = torch.as_tensor(
+                    np.reshape(np.asarray(g.matrix(), dtype=complex_type),
+                               (2,) * (2 * k)), device=device)
+                new = list(range(n, n + k))
+                out = list(state)
+                for j, a in enumerate(axes):
+                    out[a] = n + j
+                psi = torch.einsum(U, new + axes, psi, state, out)
     return psi
 
 

@@ -1,0 +1,344 @@
+"""Sliced contraction executor.
+
+The counterpart of ``hybridq_tpu/simulation/tn/contract.py``, which
+replaces cotengra's ``SlicedContractor`` (reference
+``simulation.py:1050-1084``):
+
+  * ``ContractionPlan`` (a copy): the contraction tree as a static list
+    of pairwise steps — a ``tensordot`` spec, or an integer-label einsum
+    spec where the step keeps a hyperedge index;
+  * ``SlicedContractor.contract_np`` (a copy): the plain numpy executor,
+    one slice at a time — the reference the others are held against,
+    and ``backend='numpy'``;
+  * ``SlicedContractor.contract_torch``: native complex tensors on a
+    torch device.  A chunk of slices runs as a leading batch dimension
+    of every intermediate that depends on the slice; a subtree whose
+    leaves carry no sliced index is contracted once per call and enters
+    the batched steps unbatched.  Matmuls run with TF32 off, whatever
+    the caller's flags.
+
+Slice id ``s`` selects bit ``j`` of ``s`` for ``sliced[j]`` (the sliced
+indices sorted by name), as in the JAX package, so ``slice_range``
+partial sums — the unit of checkpoint and resume — agree range for range
+with it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, FrozenSet, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from hybridq_tpu_torch.simulation._device import (full_precision_matmul,
+                                                  resolve_device)
+from hybridq_tpu_torch.simulation.tn.network import Tensor
+from hybridq_tpu_torch.simulation.tn.path import ContractionTree
+
+__all__ = ['ContractionPlan', 'SlicedContractor']
+
+_MAX_LABELS = 52        # torch.einsum's sublist labels are 0..51
+
+
+class ContractionPlan:
+    """Static schedule of pairwise contractions for (tree, sliced).
+
+    Hyperedge-aware: an index shared by both children that is RETAINED
+    at the parent (``tree.node_inds``: it appears in a third subtree or
+    in the output — quimb-style hyper indices, produced by
+    ``TensorNetwork.diagonal_reduce``) is *batched*, not summed.  Each
+    step carries a tensordot spec (fast path, no batch) or an einsum
+    spec in integer-label form (batched)."""
+
+    def __init__(self, tree: ContractionTree, sliced: FrozenSet[str]):
+        self.tree = tree
+        self.sliced = tuple(sorted(sliced))
+        self.sliced_set = frozenset(sliced)
+        sl = self.sliced_set
+
+        # Effective (post-slicing) index list per node.
+        self.eff: Dict[int, Tuple[str, ...]] = {}
+        for v in range(tree.n_leaves):
+            self.eff[v] = tuple(i for i in tree.inputs[v] if i not in sl)
+        self.steps: List[tuple] = []
+        for v in tree.topo_order():
+            if v < tree.n_leaves:
+                continue
+            a, b = tree.children[v]
+            ea, eb = self.eff[a], self.eff[b]
+            retained = set(tree.node_inds[v])
+            shared = [i for i in ea if i in eb]
+            summed = [i for i in shared if i not in retained]
+            batch = tuple(i for i in shared if i in retained)
+            self.eff[v] = batch + tuple(
+                i for i in ea if i not in shared) + tuple(
+                i for i in eb if i not in shared)
+            if not batch:
+                a_axes = tuple(ea.index(i) for i in summed)
+                b_axes = tuple(eb.index(i) for i in summed)
+                self.steps.append((v, a, b, a_axes, b_axes, None))
+            else:
+                labels = {i: k for k, i in enumerate(
+                    dict.fromkeys(ea + eb))}
+                spec = (tuple(labels[i] for i in ea),
+                        tuple(labels[i] for i in eb),
+                        tuple(labels[i] for i in self.eff[v]))
+                self.steps.append((v, a, b, None, None, spec))
+        self.root = tree.root
+
+        # Per-leaf sliced axes: (axis_in_original_inds, slice_position).
+        self.leaf_slices: Dict[int, Tuple[Tuple[int, int], ...]] = {}
+        for v in range(tree.n_leaves):
+            entries = []
+            for pos, i in enumerate(tree.inputs[v]):
+                if i in sl:
+                    entries.append((pos, self.sliced.index(i)))
+            self.leaf_slices[v] = tuple(entries)
+
+        self.nslices = 1
+        for i in self.sliced:
+            self.nslices *= tree.size_dict[i]
+
+    def output_perm(self, output_order: Sequence[str]) -> Tuple[int, ...]:
+        """Permutation taking the root's index order to
+        ``output_order``."""
+        root_inds = self.eff[self.root]
+        if set(root_inds) != set(output_order):
+            raise ValueError("output order inconsistent with root indices")
+        return tuple(root_inds.index(i) for i in output_order)
+
+
+class SlicedContractor:
+    """Executes a ContractionPlan over all slices, on numpy or torch."""
+
+    def __init__(self, plan: ContractionPlan, tensors: Sequence[Tensor],
+                 output_order: Sequence[str], complex_type='complex64'):
+        if len(tensors) != plan.tree.n_leaves:
+            raise ValueError("wrong number of tensors")
+        self.plan = plan
+        self.output_order = tuple(output_order)
+        self.perm = plan.output_perm(output_order)
+        self.complex_type = np.dtype(complex_type)
+        # Reorder each tensor's data to the tree's declared leaf index
+        # order (tree.inputs comes from the same tensors, so this is a
+        # no-op unless the caller reordered).
+        self.datas = []
+        for t, inds in zip(tensors, plan.tree.inputs):
+            if t.inds != inds:
+                perm = tuple(t.inds.index(i) for i in inds)
+                d = np.ascontiguousarray(np.transpose(t.data, perm))
+            else:
+                d = np.ascontiguousarray(t.data)
+            # Normalize to the declared leaf shape: a fully-simplified
+            # (scalar) tensor can arrive as shape (1,) while its index
+            # list is () — tensordot would then grow spurious size-1
+            # dims that desync every later step from ``plan.eff``.
+            want = tuple(plan.tree.size_dict[i] for i in inds)
+            if d.shape != want:
+                d = d.reshape(want)
+            self.datas.append(d)
+        self.nslices = plan.nslices
+
+    def _range(self, slice_range):
+        """Clamp a ``(start, stop)`` request to the valid slice ids:
+        ids >= nslices alias the low slice bits and would silently
+        double-count slices."""
+        start, stop = slice_range if slice_range is not None \
+            else (0, self.nslices)
+        return max(0, start), min(stop, self.nslices)
+
+    def _zeros(self):
+        return np.zeros([self.plan.tree.size_dict[i]
+                         for i in self.output_order],
+                        dtype=self.complex_type)
+
+    # -- numpy backend ---------------------------------------------------
+    def _leaf_np(self, v, sid):
+        d = self.datas[v]
+        for pos, j in sorted(self.plan.leaf_slices[v], reverse=True):
+            bit = (sid >> j) & 1
+            d = np.take(d, bit, axis=pos)
+        return d
+
+    def contract_slice_np(self, sid: int) -> np.ndarray:
+        vals = {v: self._leaf_np(v, sid)
+                for v in range(self.plan.tree.n_leaves)}
+        for v, a, b, a_axes, b_axes, spec in self.plan.steps:
+            if spec is None:
+                vals[v] = np.tensordot(vals.pop(a), vals.pop(b),
+                                       axes=(a_axes, b_axes))
+            else:
+                la, lb, lo = spec
+                vals[v] = np.einsum(vals.pop(a), list(la),
+                                    vals.pop(b), list(lb), list(lo))
+        out = vals[self.plan.root]
+        return np.transpose(out, self.perm) if self.perm else out
+
+    def contract_np(self, verbose: bool = False,
+                    slice_range=None) -> np.ndarray:
+        start, stop = self._range(slice_range)
+        if stop <= start:  # empty range: a zero partial sum
+            return self._zeros()
+        out = self.contract_slice_np(start).astype(self.complex_type)
+        for sid in range(start + 1, stop):
+            out = out + self.contract_slice_np(sid)
+        return out
+
+    # -- torch backend ---------------------------------------------------
+    def _chunk(self, max_batch_elems: float = 2**25):
+        size = max(self.plan.tree.max_size(self.plan.sliced_set), 1)
+        chunk = int(max(1, min(self.nslices, max_batch_elems // size)))
+        # the largest divisor of nslices that is <= chunk
+        while self.nslices % chunk:
+            chunk -= 1
+        return chunk
+
+    def schedule(self):
+        """``(batched, steps)``: ``batched[v]`` is True when node ``v``
+        depends on the slice id (a leaf under it carries a sliced
+        index), and then its tensor has a leading slice-batch axis; each
+        step is ``(v, a, b, op)`` with ``op`` either ``('tensordot',
+        a_axes, b_axes, move)`` (``move``: the axis of the result that
+        holds the batch and goes to the front, or None) or ``('einsum',
+        la, lb, lo)``, integer sublist labels with the batch as one
+        more label."""
+        plan = self.plan
+        batched = {v: bool(plan.leaf_slices[v])
+                   for v in range(plan.tree.n_leaves)}
+        steps = []
+        for v, a, b, a_axes, b_axes, spec in plan.steps:
+            xb, yb = batched[a], batched[b]
+            batched[v] = xb or yb
+            if spec is None and not (xb and yb):
+                move = len(plan.eff[a]) - len(a_axes) if yb else None
+                steps.append((v, a, b, (
+                    'tensordot', tuple(i + xb for i in a_axes),
+                    tuple(i + yb for i in b_axes), move)))
+                continue
+            ea, eb = plan.eff[a], plan.eff[b]
+            if spec is None:
+                labels = {i: k for k, i in enumerate(
+                    dict.fromkeys(ea + eb))}
+                spec = (tuple(labels[i] for i in ea),
+                        tuple(labels[i] for i in eb),
+                        tuple(labels[i] for i in plan.eff[v]))
+            # the slice batch takes the next label
+            s = len(set(spec[0]) | set(spec[1]))
+            if s + batched[v] > _MAX_LABELS:
+                raise ValueError(
+                    f"step {v} needs {s + 1} einsum labels; torch.einsum "
+                    f"takes at most {_MAX_LABELS}")
+            batch = (s,)
+            steps.append((v, a, b, (
+                'einsum', batch * xb + spec[0], batch * yb + spec[1],
+                batch * batched[v] + spec[2])))
+        return batched, steps
+
+    def contract_torch(self, device=None,
+                       slice_range=None) -> np.ndarray:
+        """Sum the slices ``[start, stop)`` of ``slice_range`` (all by
+        default) on ``device`` (``None`` means ``'cuda'``, which raises
+        without a card); returns a numpy array of ``complex_type``.
+
+        Chunks of ``_chunk()`` slices (2^25 elements over the widest
+        intermediate, as the JAX executor sizes its vmap) run as one
+        batch.  Each child is freed once its parent is made.
+        """
+        device = resolve_device(device, 'contract_torch()')
+        start, stop = self._range(slice_range)
+        if stop <= start:  # empty range: a zero partial sum
+            return self._zeros()
+        plan = self.plan
+        if any(plan.tree.size_dict[i] != 2 for i in plan.sliced):
+            raise ValueError("sliced indices must have dimension 2")
+        batched, steps = self.schedule()
+        n = plan.tree.n_leaves
+
+        with full_precision_matmul():
+            leaves = [torch.as_tensor(d.astype(self.complex_type,
+                                               copy=False), device=device)
+                      for d in self.datas]
+            # Sliced leaves: sliced axes first, flattened to one axis of
+            # 2^s rows that the chunk's ids index.
+            gathers = {}
+            for v in range(n):
+                sl = plan.leaf_slices[v]
+                if not sl:
+                    continue
+                axes = [pos for pos, _ in sl]
+                rest = [p for p in range(leaves[v].dim()) if p not in axes]
+                d = leaves[v].permute(axes + rest).reshape(
+                    (2 ** len(axes),) +
+                    tuple(leaves[v].shape[p] for p in rest))
+                shifts = torch.tensor([j for _, j in sl], device=device)
+                weights = torch.tensor(
+                    [2 ** (len(sl) - 1 - k) for k in range(len(sl))],
+                    device=device)
+                gathers[v] = (d.contiguous(), shifts, weights)
+                leaves[v] = None
+
+            # Slice-invariant subtrees, once per call: what stays in
+            # ``fixed`` is the root or a child of a batched step.
+            fixed = {v: leaves[v] for v in range(n) if not batched[v]}
+            del leaves
+            for v, a, b, op in steps:
+                if not batched[v]:
+                    fixed[v] = _step(fixed.pop(a), fixed.pop(b), op)
+
+            if not batched[plan.root]:   # no sliced index: one slice
+                acc = fixed[plan.root] * (stop - start)
+            else:
+                acc = None
+                chunk = self._chunk()
+                for s0 in range(start, stop, chunk):
+                    sids = torch.arange(s0, min(s0 + chunk, stop),
+                                        device=device)
+                    vals = {}
+                    for v, (d, shifts, weights) in gathers.items():
+                        idx = (((sids[:, None] >> shifts) & 1) *
+                               weights).sum(1)
+                        vals[v] = d.index_select(0, idx)
+                    for v, a, b, op in steps:
+                        if not batched[v]:
+                            continue
+                        x = vals.pop(a) if batched[a] else fixed[a]
+                        y = vals.pop(b) if batched[b] else fixed[b]
+                        vals[v] = _step(x, y, op)
+                        del x, y
+                    part = vals.pop(plan.root).sum(0)
+                    acc = part if acc is None else acc + part
+                    del part
+            out = acc.permute(self.perm) if self.perm else acc
+            return out.cpu().numpy().astype(self.complex_type, copy=False)
+
+    def contract(self, backend='torch', devices=None, device=None,
+                 verbose: bool = False, slice_range=None) -> np.ndarray:
+        """``backend='numpy'``: ``contract_np``; otherwise
+        ``contract_torch`` on ``device`` (or the single entry of
+        ``devices``)."""
+        if devices is not None:
+            devices = list(devices)
+            if len(devices) > 1:
+                raise NotImplementedError(
+                    "contraction over several devices is not ported to "
+                    "hybridq_tpu_torch yet: see ROADMAP.md Queue 1, item "
+                    "11 (sharded engines and the slice all_reduce)")
+            if devices and device is None:
+                device = devices[0]
+        if backend == 'numpy':
+            return self.contract_np(verbose=verbose,
+                                    slice_range=slice_range)
+        if backend != 'torch':
+            raise ValueError(f"backend must be 'torch' or 'numpy', "
+                             f"got {backend!r}")
+        return self.contract_torch(device=device, slice_range=slice_range)
+
+
+def _step(x, y, op):
+    """One pairwise contraction of ``SlicedContractor.schedule``."""
+    if op[0] == 'einsum':
+        _, la, lb, lo = op
+        return torch.einsum(x, list(la), y, list(lb), list(lo))
+    _, a_axes, b_axes, move = op
+    z = torch.tensordot(x, y, dims=(list(a_axes), list(b_axes)))
+    return z if move is None else z.movedim(move, 0)

@@ -358,3 +358,49 @@ def test_cuda_gather_matches_plain(rows, run, blk, matmul, nbuf, cuda):
     torch.cuda.synchronize()
     assert gather.counts() == {'gather_scale': 1}
     assert torch.equal(got, gather.gather_scale_plain(x, matmul))
+
+
+@pytest.mark.parametrize('simplify, final, target, chunk', [
+    (True, '0' * 8, 2 ** 6, None), (True, '0' * 8, 2 ** 6, 3),
+    ('full', '0..0..0.', 2 ** 4, None)])
+def test_cuda_tn_executor_matches_cpu(simplify, final, target, chunk,
+                                      monkeypatch, cuda):
+    """``contract_torch`` on the card against the same executor on the
+    host, slices batched (one chunk, then chunks of 3), hyperedge steps
+    included, full sum and a partial range; complex64 to 1e-5 and
+    complex128 to 1e-12 of the largest entry, with the global TF32 flags
+    on (the executor turns TF32 off)."""
+    from hybridq_tpu_torch import Circuit, Gate
+    from hybridq_tpu_torch.circuit import utils
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.simulation.tn import (ContractionPlan,
+                                                 SlicedContractor,
+                                                 build_tn, find_path,
+                                                 find_slices)
+
+    np.random.seed(5)
+    n = 8
+    c = Circuit([Gate('H', qubits=[q]) for q in range(n)]) + \
+        get_rqc(n, 100, indexes=list(range(n)))
+    if simplify != 'full':
+        c = Circuit(utils.to_matrix_gate(b) for b in utils.compress(c, 2))
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+    for ctype, tol in (('complex64', 1e-5), ('complex128', 1e-12)):
+        net, order = build_tn(c, '0' * n, final, complex_type=ctype,
+                              simplify=simplify)
+        inputs = [t.inds for t in net.tensors]
+        sizes = {i: d for t in net.tensors
+                 for i, d in zip(t.inds, t.data.shape)}
+        tree = find_path(inputs, order, sizes, max_repeats=4, seed=0)
+        sliced, _ = find_slices(tree, target)
+        sc = SlicedContractor(ContractionPlan(tree, sliced), net.tensors,
+                              order, complex_type=ctype)
+        assert sc.nslices > 1
+        if chunk is not None:
+            monkeypatch.setattr(sc, '_chunk', lambda: chunk)
+        for r in (None, (1, sc.nslices - 2)):
+            want = sc.contract_torch(device='cpu', slice_range=r)
+            got = sc.contract_torch(device=cuda, slice_range=r)
+            assert got.dtype == np.dtype(ctype)
+            assert np.abs(got - want).max() <= tol * np.abs(want).max()
+        assert torch.backends.cuda.matmul.allow_tf32

@@ -1,6 +1,7 @@
 """The port stands alone: ``hybridq_tpu_torch`` imports neither ``jax`` nor
-``hybridq_tpu``, its entry point runs on the card unless the caller asks
-for the CPU, and an installed copy ships every CUDA file its build reads."""
+``hybridq_tpu`` (nor ``opt_einsum``, which the card machine lacks), its
+entry points run on the card unless the caller asks for the CPU, and an
+installed copy ships every CUDA and C++ file its builds read."""
 
 import ast
 import fnmatch
@@ -18,10 +19,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / 'hybridq_tpu_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'hybridq_tpu')
+# not on the card machine; torch imports it when present, so the source
+# scan and a run with it blocked stand for "unloaded"
+NOT_NEEDED = ('opt_einsum',)
 
 
 def _forbidden(module):
-    return any(module == f or module.startswith(f + '.') for f in FORBIDDEN)
+    return any(module == f or module.startswith(f + '.')
+               for f in FORBIDDEN + NOT_NEEDED)
 
 
 def test_no_forbidden_imports_in_source():
@@ -52,7 +57,8 @@ def test_import_leaves_jax_unloaded():
             "hybridq_tpu_torch.simulation.row_kernels, "
             "hybridq_tpu_torch.probes.fused_k4, "
             "hybridq_tpu_torch.probes.bw, hybridq_tpu_torch.probes.gather, "
-            "hybridq_tpu_torch.simulation._build; "
+            "hybridq_tpu_torch.simulation._build, "
+            "hybridq_tpu_torch.simulation.tn, hybridq_tpu_torch.native; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -61,10 +67,48 @@ def test_import_leaves_jax_unloaded():
     assert r.returncode == 0, (r.stdout, r.stderr)
 
 
+def test_tn_and_einsum_run_without_opt_einsum_or_networkx():
+    """With ``opt_einsum`` unimportable (as on the card machine), the TN
+    engine (path search, slicing, the torch executor) and
+    ``'evolution-einsum'`` run, ``load_reference_plan`` reads every
+    committed plan, and ``jax``, ``hybridq_tpu`` and, with the native
+    library built, ``networkx`` stay unloaded."""
+    code = (
+        "import sys; sys.modules['opt_einsum'] = None\n"
+        "import numpy as np\n"
+        "from hybridq_tpu_torch import Gate\n"
+        "from hybridq_tpu_torch import native\n"
+        "from hybridq_tpu_torch.simulation import simulate\n"
+        "c = [Gate('H', qubits=[0]), Gate('CX', qubits=[0, 1])]\n"
+        "bell = np.array([1, 0, 0, 1]) / np.sqrt(2)\n"
+        "for kw in (dict(optimize='tn', final_state='..', max_time=1),\n"
+        "           dict(optimize='evolution-einsum')):\n"
+        "    psi = simulate(c, initial_state='00', device='cpu', **kw)\n"
+        "    assert np.abs(psi.reshape(-1) - bell).max() < 1e-6, kw\n"
+        "assert native.hgp_available()\n"
+        "from hybridq_tpu_torch.convert import load_reference_plan\n"
+        "for name in ('d12_s0_t26', 'd20_s0_t22', 'd20_s0_t24',\n"
+        "             'd20_s0_t26'):\n"
+        "    plan = load_reference_plan(\n"
+        "        f'scripts/_plan_cache/syc53_{name}.pkl')\n"
+        "    assert type(plan[2]).__module__.startswith(\n"
+        "        'hybridq_tpu_torch.'), type(plan[2])\n"
+        "bad = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
+        f"             and m.split('.')[0] in {FORBIDDEN + NOT_NEEDED!r}\n"
+        "             + ('networkx',))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, '-c', code], cwd=str(ROOT),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, (r.stdout, r.stderr)
+
+
 def test_package_data_ships_every_cuda_source_and_header():
     """An installed copy builds from what ``package-data`` ships: every
     ``csrc`` file and every ``#include "..."`` of a source must match one
-    of its globs, or nvcc fails there though it passes in the checkout."""
+    of its globs, or nvcc fails there though it passes in the checkout;
+    so must the native path search's C++ sources (``native/*.cpp``),
+    which g++ builds at first use."""
     with open(ROOT / 'pyproject.toml', 'rb') as f:
         globs = tomllib.load(f)['tool']['setuptools']['package-data'][
             'hybridq_tpu_torch']
@@ -81,6 +125,12 @@ def test_package_data_ships_every_cuda_source_and_header():
             rel = target.relative_to(PKG).as_posix()
             assert any(fnmatch.fnmatch(rel, g) for g in globs), \
                 (path.name, inc, globs)
+    native = sorted((PKG / 'native').glob('*.cpp'))
+    assert [p.name for p in native] == ['hgpart.cpp', 'tnopt.cpp',
+                                        'tree_anneal.cpp']
+    for path in native:
+        rel = path.relative_to(PKG).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
 
 
 def test_simulate_needs_a_card_unless_told(monkeypatch):
@@ -97,41 +147,68 @@ def test_simulate_needs_a_card_unless_told(monkeypatch):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize('optimize, complex_type, item', [
-    ('evolution-einsum', 'complex64', 'item 4a'),
-    ('evolution-sharded', 'complex64', 'item 11'),
-    ('tn', 'complex64', 'item 10'),
+@pytest.mark.parametrize('optimize, kwargs, item', [
+    ('evolution-sharded', {}, 'item 11'),
+    ('tn', {'final_state': '.', 'devices': ['cpu', 'cpu']}, 'item 11'),
 ])
-def test_unported_engines_name_their_roadmap_item(optimize, complex_type,
-                                                  item):
+def test_unported_engines_name_their_roadmap_item(optimize, kwargs, item):
+    """The sharded engines, and a TN contraction over several devices,
+    raise naming their ROADMAP item."""
     from hybridq_tpu_torch import Gate
     from hybridq_tpu_torch.simulation import simulate
 
     c = [Gate('H', qubits=[0])]
     with pytest.raises(NotImplementedError, match=item):
-        simulate(c, initial_state='0', optimize=optimize,
-                 complex_type=complex_type, device='cpu')
+        simulate(c, initial_state='0', optimize=optimize, device='cpu',
+                 **kwargs)
 
 
 @pytest.mark.parametrize('optimize, complex_type, engine', [
     ('evolution-indexed', 'complex64', 'indexed'),
     ('evolution', 'complex128', 'torch'),
+    ('evolution-einsum', 'complex64', 'einsum'),
+    ('tn', 'complex64', None),
 ])
 def test_ported_engines_run_on_the_host(optimize, complex_type, engine):
-    """The straight engine and complex128 evolution, once named by the
-    test above as not ported, now run on the host and give the Bell
-    state."""
+    """The straight engine, complex128 evolution, ``'evolution-einsum'``
+    and the TN engine, once named by the test above as not ported, now
+    run on the host and give the Bell state."""
     from hybridq_tpu_torch import Gate
     from hybridq_tpu_torch.simulation import simulate
 
     c = [Gate('H', qubits=[0]), Gate('CX', qubits=[0, 1])]
+    kw = {} if engine else {'final_state': '..', 'max_time': 1}
     psi, info = simulate(c, initial_state='00', optimize=optimize,
                          complex_type=complex_type, device='cpu',
-                         return_info=True)
-    assert info['engine'] == engine and psi.dtype == np.dtype(complex_type)
+                         return_info=True, **kw)
+    assert info.get('engine') == engine
+    assert psi.dtype == np.dtype(complex_type)
     np.testing.assert_allclose(psi.reshape(-1),
                                np.array([1, 0, 0, 1]) / np.sqrt(2),
-                               atol=1e-7 if engine == 'indexed' else 1e-15)
+                               atol=1e-7 if engine != 'torch' else 1e-15)
+
+
+@pytest.mark.parametrize('optimize', ['tn', 'evolution-einsum'])
+def test_tn_and_einsum_need_a_card_unless_told(optimize, monkeypatch):
+    """``simulate(optimize='tn')`` and ``'evolution-einsum'`` run on the
+    card by default: without one they raise, naming ``device='cpu'``;
+    the TN engine's plain numpy executor (``backend='numpy'``) is the
+    host path that needs no card."""
+    from hybridq_tpu_torch import Gate
+    from hybridq_tpu_torch.simulation import simulate
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    c = [Gate('H', qubits=[0]), Gate('CX', qubits=[0, 1])]
+    kw = {'final_state': '..', 'max_time': 1} if optimize == 'tn' else {}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate(c, initial_state='00', optimize=optimize, **kw)
+    bell = np.array([1, 0, 0, 1]) / np.sqrt(2)
+    runs = [dict(device='cpu')] + ([dict(backend='numpy')]
+                                   if optimize == 'tn' else [])
+    for run in runs:
+        psi = simulate(c, initial_state='00', optimize=optimize, **kw,
+                       **run)
+        np.testing.assert_allclose(psi.reshape(-1), bell, atol=1e-6)
 
 
 @pytest.mark.parametrize('entry', ['state_from_reference', 'IndexedEvolver'])
