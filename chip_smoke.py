@@ -98,7 +98,13 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              place); and the TF32 and 3xTF32 dots on the scripts' inputs
              against float64 (rel-err in [1e-5, 1e-2] for one TF32 pass:
              f32 accuracy there would mean no tensor cores; <= 1e-5 for
-             3xTF32), beside ``torch.matmul``.  Runs after ``paths``.
+             3xTF32), beside ``torch.matmul``: their ptxas registers and
+             spills, then kernel and library timed in turns (kernel,
+             library, library, kernel), each turn 100 calls between CUDA
+             events (``ms``), their host time (``host_ms``) and 100 more
+             under ``torch.profiler`` (``device_ms``, and the launch grid
+             as blocks x threads), after the host time of a dot call's
+             parts (``dot_host_ms``).  Runs after ``paths``.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``name, power.limit``
 and, as the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -147,6 +153,9 @@ PROBE_SUMMARY_CASE = {'stream_scale': 'B  auto S=512 (2MB)',
                       'stream_scale_pipelined': 'C  manual S=256 x2buf',
                       'gather_scale': 'run 2KB   (4 sub)  blk 1024'}
 PROBE_REPS = 10            # timed repetitions of each probe kernel
+DOT_REPS = 100             # calls in each timed turn of the 128^3 dots
+HOST_REPS = 1000           # calls timed for each host part of a dot call
+PROFILE_TRIES = 3          # torch.profiler sessions before giving up
 TOL = 1e-5                 # max|d|/rms, kernel against plain (f32 sums)
 # max|d| / max|amp| of simulate against the complex128 oracle: f32
 # evolution gives 6e-7 to 8e-7 at these depths on the card and on the CPU.
@@ -795,11 +804,109 @@ def hold_exact(x, kern, plain, kern_ms, library):
     return r
 
 
+def profile_calls(fn, reps):
+    """``fn()`` ``reps`` times under ``torch.profiler``: the device
+    kernels' time and count per call, and each kernel's launch grid as
+    ``blocks x threads``, read from the exported trace.  A session that
+    saw no device kernel (it happened once in a fresh process) is run
+    again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hybridq_tpu_torch.simulation import _build
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):     # a session may come back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    check(kernels, f"probes: {PROFILE_TRIES} profiler sessions saw no "
+          f"device kernel")
+    path = _build.BUILD_DIR / 'probe_trace.json'
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        trace = json.load(f)
+    path.unlink()
+    grids = {}
+    for ev in trace.get('traceEvents', []):
+        args = ev.get('args', {})
+        if ev.get('cat') == 'kernel' and 'grid' in args:
+            grids[ev['name'][:80]] = (f"{int(np.prod(args['grid']))} x "
+                                      f"{int(np.prod(args['block']))}")
+    us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    return {'device_ms': us / 1e3 / reps,
+            'kernels_per_call': len(kernels) / reps, 'grids': grids}
+
+
+def host_ms(fn, reps):
+    """Host time (ms) of one ``fn()``: ``reps`` calls after a warm one,
+    with no synchronize inside the timed loop."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
+def dot_host_parts(a, b):
+    """Host time (ms) of a TF32 ``bw.dot`` call and of its parts: the
+    output's ``empty_like`` and the raw stream it reads, beside what it no
+    longer does on every call (build a ``torch.cuda.Stream``, enter the
+    device's context)."""
+    import torch
+    from hybridq_tpu_torch.probes import bw
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+
+    def context():
+        with torch.cuda.device(a.device):
+            pass
+
+    parts = {'dot_tf32': lambda: bw.dot(a, b, 'tf32'),
+             'empty_like': lambda: torch.empty_like(a),
+             'raw_stream': lambda: fk._stream(a),
+             'stream_object':
+                 lambda: torch.cuda.current_stream(a.device).cuda_stream,
+             'device_context': context}
+    return {key: host_ms(fn, HOST_REPS) for key, fn in parts.items()}
+
+
+def dot_turns(kern, library):
+    """``kern`` and ``library`` in turns (kernel, library, library,
+    kernel), each turn ``DOT_REPS`` calls between CUDA events (``ms``,
+    the kernel table's column), the same calls' host time without a
+    synchronize (``host_ms``), then ``DOT_REPS`` more under the profiler
+    (``device_ms``); returns the means of each pair of turns and the
+    turns themselves."""
+    turns = [{'ms': time_ms(fn, DOT_REPS), 'host_ms': host_ms(fn, DOT_REPS),
+              **profile_calls(fn, DOT_REPS)}
+             for fn in (kern, library, library, kern)]
+    k, lib = (turns[0], turns[3]), (turns[1], turns[2])
+    r = {}
+    for key in ('ms', 'host_ms', 'device_ms'):
+        r[key] = (k[0][key] + k[1][key]) / 2
+        r[f'library_{key}'] = (lib[0][key] + lib[1][key]) / 2
+    r.update(grid=turns[0]['grids'], library_grid=turns[1]['grids'],
+             turns=turns)
+    return r
+
+
 def phase_probes(out, name):
     """See the module docstring; returns the summary entries of the six
     probe kernels."""
     import torch
     from hybridq_tpu_torch.probes import bw, gather
+    from hybridq_tpu_torch.simulation import _build
 
     card = card_power()
     peak_bw, _, peak_tf32 = peaks(name)
@@ -873,6 +980,11 @@ def phase_probes(out, name):
     torch.cuda.empty_cache()
 
     # rows 9 and 11: the 128^3 dot against float64, on the script's inputs
+    dot_ptxas = {e: r for e, r in ptxas_entries(_build.LOGS).items()
+                 if 'dot_kernel' in e}
+    emit({'phase': 'probes', 'ptxas': dot_ptxas, 'card': card}, out)
+    check(len(dot_ptxas) == 2, f"probes: {len(dot_ptxas)} dot_kernel "
+          f"instantiations in the ptxas output, not 2")
     a, b = bw.dot_inputs()
     ad, bd = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
     n = bw.DOT_N
@@ -880,8 +992,9 @@ def phase_probes(out, name):
     t_bytes = 3 * n * n * 4 / peak_bw * 1e3
     dot_bound = (max(t_ops, t_bytes),
                  'bytes' if t_bytes >= t_ops else 'operations')
+    emit({'phase': 'probes', 'dot_host_ms': dot_host_parts(ad, bd),
+          'card': card}, out)
     bands = {'tf32': (1e-5, 1e-2), '3xtf32': (0.0, 1e-5)}
-    dot_reps = 100
     for prec, (lo, hi) in bands.items():
         got = bw.dot(ad, bd, prec)
         want = bw.dot_plain(ad, bd)
@@ -892,11 +1005,10 @@ def phase_probes(out, name):
              'rel_err_vs_f64': err,
              'plain_rel_err_vs_f64': bw.rel_err(want, a, b),
              'library_rel_err_vs_f64': bw.rel_err(lib, a, b),
-             'ms': time_ms(lambda: bw.dot(ad, bd, prec), dot_reps),
-             'plain_ms': time_ms(lambda: bw.dot_plain(ad, bd), dot_reps),
-             'library_ms': time_ms(
-                 lambda: bw.library_matmul(ad, bd, tf32=prec == 'tf32'),
-                 dot_reps)}
+             **dot_turns(lambda: bw.dot(ad, bd, prec),
+                         lambda: bw.library_matmul(ad, bd,
+                                                   tf32=prec == 'tf32')),
+             'plain_ms': time_ms(lambda: bw.dot_plain(ad, bd), DOT_REPS)}
         record(f'dot_{prec}', prec, r, *dot_bound)
         check(lo <= err <= hi, f"probes: {prec} dot rel-err {err:.3g} "
               f"outside [{lo}, {hi}]")

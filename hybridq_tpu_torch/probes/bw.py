@@ -32,6 +32,7 @@ them and ``counts`` reads them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import subprocess
 import sys
 from typing import NamedTuple
@@ -201,39 +202,55 @@ def dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
+@functools.cache
+def _dot128():
+    """``hq_dot128`` of ``csrc/dot_probe.cu``, resolved once."""
+    # A, B, C, passes, stream
+    return fk._c_function('dot_probe', 'hq_dot128',
+                          [fk._PTR, fk._PTR, fk._PTR, fk._INT, fk._PTR])
+
+
 def dot(a: torch.Tensor, b: torch.Tensor, precision: str = 'tf32'
         ) -> torch.Tensor:
     """``a @ b`` for two 128 x 128 f32 tensors on the tensor cores: one
     TF32 pass (``'tf32'``) or the 3xTF32 split (``'3xtf32'``)."""
-    if precision not in PRECISIONS:
+    passes = PRECISIONS.get(precision)
+    if passes is None:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, "
                          f"got {precision!r}")
     for t in (a, b):
-        if t.dtype != torch.float32 or tuple(t.shape) != (DOT_N, DOT_N) or \
+        if t.dtype != torch.float32 or t.shape != (DOT_N, DOT_N) or \
                 not t.is_contiguous():
             raise ValueError(f"dot takes contiguous {DOT_N}x{DOT_N} "
                              f"float32 tensors")
-    if a.device != b.device:
+    device = a.device
+    if b.device != device:
         raise ValueError("a and b must be on the same device")
     if not fk._kernel_device(a):
         return dot_plain(a, b)
+    # host time is most of a call's time: each pointer is read once, and
+    # devices switch only when a is not on the current one
+    pa, pb = a.data_ptr(), b.data_ptr()
+    if (pa | pb) % 16:
+        raise ValueError("the kernel needs 16-byte aligned tensors")
     out = torch.empty_like(a)
-    # A, B, C, passes, stream
-    fn = fk._c_function('dot_probe', 'hq_dot128',
-                        [fk._PTR, fk._PTR, fk._PTR, fk._INT, fk._PTR])
-    with torch.cuda.device(a.device):
-        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 PRECISIONS[precision], fk._stream(a))
-    fk._check_launch(err, f"dot_probe ({precision})")
+    args = (pa, pb, out.data_ptr(), passes, fk._stream(a))
+    if device.index == torch.cuda.current_device():
+        err = _dot128()(*args)
+    else:
+        with torch.cuda.device(device):
+            err = _dot128()(*args)
+    if err:
+        fk._check_launch(err, f"dot_probe ({precision})")
     dot_launches[precision] += 1
     return out
 
 
-def dot_inputs():
-    """The script's operands: ``default_rng(0)`` and ``default_rng(1)``
-    standard normals of shape (128, 128), in f32."""
+def dot_inputs(seeds=(0, 1)):
+    """Two (128, 128) f32 standard normals, from ``default_rng`` of each of
+    ``seeds``; the default is the script's operands."""
     return tuple(np.random.default_rng(s).standard_normal(
-        (DOT_N, DOT_N)).astype(np.float32) for s in (0, 1))
+        (DOT_N, DOT_N)).astype(np.float32) for s in seeds)
 
 
 def rel_err(got, a, b) -> float:

@@ -263,7 +263,10 @@ def _ints(values, size):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The ``cudaStream_t`` of PyTorch's current stream on ``t``'s card,
+    read as PyTorch's own generated launchers read it: without building a
+    ``torch.cuda.Stream`` object, which costs microseconds a launch."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _check_launch(err, what):

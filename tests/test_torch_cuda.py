@@ -10,7 +10,8 @@ Tolerance: max|d| <= 1e-5 on a unit-norm state -- f32 sums taken in
 another order than ``torch.matmul``'s.  The probes' copies and gathers are
 exact (doubling and bf16 rounding are exact); their dots are held against
 float64: one TF32 pass within [1e-5, 1e-2] (f32 accuracy would mean the
-tensor cores were not used), 3xTF32 within 1e-5.
+tensor cores were not used) and within 1e-5 of the product of its operands
+rounded to TF32, 3xTF32 within 1e-5.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ from hybridq_tpu_torch.simulation import fused_kernels as fk
 from hybridq_tpu_torch.simulation import row_kernels as rk
 from hybridq_tpu_torch.simulation.fused_evolver import _SW, FusedEvolver
 from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
+from tests.test_torch_dot_host import tf32_round
 
 ATOL = 1e-5
 FUSED_CLASSES = [0, 1, 2, 3, 4]
@@ -331,16 +333,46 @@ def test_cuda_stream_scale_into_out(kind, rows, cuda):
     assert torch.equal(out, bw.scale_plain(x))
 
 
-@pytest.mark.parametrize('precision, lo, hi', [('tf32', 1e-5, 1e-2),
-                                               ('3xtf32', 0.0, 1e-5)])
-def test_cuda_dot_accuracy(precision, lo, hi, cuda):
-    a, b = bw.dot_inputs()
+DOT_BANDS = [('tf32', 1e-5, 1e-2), ('3xtf32', 0.0, 1e-5)]
+# (0, 1): the probe scripts' operands
+DOT_SEEDS = [(0, 1), (2, 3), (4, 5)]
+
+
+@pytest.mark.parametrize('seeds', DOT_SEEDS,
+                         ids=lambda s: f'seeds{s[0]}{s[1]}')
+@pytest.mark.parametrize('precision, lo, hi', DOT_BANDS)
+def test_cuda_dot_accuracy(precision, lo, hi, seeds, cuda):
+    a, b = bw.dot_inputs(seeds)
     bw.reset_counts()
     got = bw.dot(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda),
                  precision)
     torch.cuda.synchronize()
     assert bw.counts()[f'dot_{precision}'] == 1
     assert lo <= bw.rel_err(got, a, b) <= hi
+    if precision == 'tf32':      # operands rounded to nearest, not cut
+        assert bw.rel_err(got, tf32_round(a), tf32_round(b)) <= 1e-5
+
+
+def test_cuda_dot_rejects_misaligned(cuda):
+    """The kernel loads 16-byte chunks: an operand 4 bytes off raises."""
+    a = torch.zeros(bw.DOT_N ** 2 + 1, device=cuda)[1:].view(bw.DOT_N,
+                                                            bw.DOT_N)
+    b = torch.zeros(bw.DOT_N, bw.DOT_N, device=cuda)
+    bw.reset_counts()
+    with pytest.raises(ValueError, match='aligned'):
+        bw.dot(a, b)
+    assert bw.counts()['dot_tf32'] == 0
+
+
+@pytest.mark.parametrize('precision', ['tf32', '3xtf32'])
+def test_cuda_dot_is_deterministic(precision, cuda):
+    """Two calls on the same operands give the same bits: the partial sums
+    of a tile meet in a fixed order, with no atomics."""
+    a, b = (torch.from_numpy(x).to(cuda) for x in bw.dot_inputs((2, 3)))
+    first = bw.dot(a, b, precision)
+    second = bw.dot(a, b, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize('rows, run, blk, matmul, nbuf', [

@@ -210,15 +210,17 @@ extern "C" long long hq_host_last_launch(int what) {
 '''
 
 
-def host_source(text):
+def host_source(text, launches, dyn_arrays):
     """The CUDA source as host C++: launches become calls, the dynamic
     shared memory a static buffer of 256 KiB (group_apply_kernel's two
-    stages and tables take 139-165 KiB)."""
+    stages and tables take 139-165 KiB).  ``launches`` and
+    ``dyn_arrays`` are the counts of ``<<<...>>>`` launches and of
+    ``extern __shared__`` arrays the source must have."""
     text, n_launch = re.subn(r'(\w+(?:<\w+>)?)<<<(.*?)>>>\(',
                              r'hq_launch(\1, hq_cfg(\2), ', text)
     text, n_dyn = re.subn(r'extern\s+__shared__(.*?)\[\];',
                           r'__shared__\1[1 << 18];', text)
-    assert n_launch == 2 and n_dyn == 1, (n_launch, n_dyn)
+    assert (n_launch, n_dyn) == (launches, dyn_arrays), (n_launch, n_dyn)
     return text
 
 
@@ -231,7 +233,8 @@ def group_apply(tmp_path_factory):
         pytest.skip("needs g++ to compile csrc/fused_apply.cu for the host")
     d = tmp_path_factory.mktemp('group_apply_host')
     (d / 'cuda_runtime.h').write_text(SHIM)
-    (d / 'fused_apply.cc').write_text(host_source(SRC.read_text()))
+    (d / 'fused_apply.cc').write_text(
+        host_source(SRC.read_text(), launches=2, dyn_arrays=1))
     so = d / 'libfused_apply_host.so'
     subprocess.run([gxx, '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
                     '-fno-strict-aliasing', '-I', str(d), '-I', str(CSRC),
