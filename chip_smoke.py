@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --out run.jsonl # also append the JSON lines
+    python3 chip_smoke.py --phases build,probes   # only these phases
 
 Phases, each printing one JSON line (a failing phase exits non-zero):
 
@@ -91,11 +92,15 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              launch counts zeroed just before and read just after (every
              kernel must launch); then every variant of both tables held
              against its plain version (``2 * x``, or ``x`` rounded to bf16
-             for the matmul variant: max|d| must be 0) and timed beside
-             its bound, its plain version and one PyTorch call, kernel
-             and library writing the same tensor (``torch.mul(x, 2,
-             out=y)`` beside ``scale(x, ..., out=y)``, ``y.mul_(2)`` in
-             place); and the TF32 and 3xTF32 dots on the scripts' inputs
+             for the matmul variant: max|d| must be 0), then kernel and
+             one PyTorch call run 10 times each untimed and timed in turns
+             (kernel, library, library, kernel), each turn 10 calls between
+             CUDA events (``ms``), their host time (``host_ms``)
+             and 10 under ``torch.profiler`` (``device_ms`` and the
+             launch grid), kernel and library writing the same tensor
+             (``torch.mul(x, 2, out=y)`` beside ``scale(x, ..., out=y)``,
+             ``y.mul_(2)`` in place), beside its bound and its plain
+             version; and the TF32 and 3xTF32 dots on the scripts' inputs
              against float64 (rel-err in [1e-5, 1e-2] for one TF32 pass:
              f32 accuracy there would mean no tensor cores; <= 1e-5 for
              3xTF32), beside ``torch.matmul``: their ptxas registers and
@@ -106,10 +111,10 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              as blocks x threads), after the host time of a dot call's
              parts (``dot_host_ms``).  Runs after ``paths``.
 
-Then the ``{"kernels": [...]}`` summary, the card's ``name, power.limit``
-and, as the last line, ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or without the package beside this script, it exits non-zero and
-prints no result.
+Then the ``{"kernels": [...]}`` summary (of the phases that ran), the
+card's ``name, power.limit`` and, as the last line, ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or without the package beside
+this script, it exits non-zero and prints no result.
 """
 
 import argparse
@@ -212,6 +217,10 @@ KERNEL_INFO = {
     'dot_3xtf32': ('hybridq_tpu_torch/csrc/dot_probe.cu',
                    'scripts/probe_pallas_gather.py:233'),
 }
+
+
+PHASES = ('build', 'kernels', 'parity', 'paths', 'probes', 'main_path',
+          'dm', 'tn')
 
 
 class PhaseError(RuntimeError):
@@ -789,7 +798,8 @@ def phase_paths(out, name):
 
 def hold_exact(x, kern, plain, kern_ms, library):
     """``kern(x)`` against ``plain(x)`` (max|d| must be 0), then the
-    kernel, plain version and ``library`` timed on the same input."""
+    kernel and ``library`` timed in turns on the same input (``turns``),
+    and the plain version."""
     import torch
 
     want = plain(x)
@@ -797,51 +807,50 @@ def hold_exact(x, kern, plain, kern_ms, library):
     torch.cuda.synchronize()
     d = (got - want).abs_().max().item()
     del got, want
-    r = {'max_abs_err': d, 'ms': time_ms(kern_ms, PROBE_REPS),
-         'plain_ms': time_ms(lambda: plain(x), PROBE_REPS),
-         'library_ms': time_ms(library, PROBE_REPS)}
+    r = {'max_abs_err': d, **turns(kern_ms, library, PROBE_REPS, host=True),
+         'plain_ms': time_ms(lambda: plain(x), PROBE_REPS)}
     torch.cuda.empty_cache()
     return r
 
 
 def profile_calls(fn, reps):
-    """``fn()`` ``reps`` times under ``torch.profiler``: the device
-    kernels' time and count per call, and each kernel's launch grid as
-    ``blocks x threads``, read from the exported trace.  A session that
-    saw no device kernel (it happened once in a fresh process) is run
-    again."""
+    """``fn()`` ``reps`` times under ``torch.profiler``: each device
+    kernel's duration and launch grid (``blocks x threads``), read from the
+    exported trace.  ``device_ms`` is the median kernel's duration times the
+    kernels a call launches (one for every probe): a session sometimes
+    drops a kernel's record or stretches one, and the median ignores
+    either.  A session whose count of kernels is not a whole number a call
+    (none at all happened once in a fresh process) is run again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from hybridq_tpu_torch.simulation import _build
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):     # a session may come back empty
+    path = _build.BUILD_DIR / 'probe_trace.json'
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels:
+        prof.export_chrome_trace(str(path))
+        with open(path) as f:
+            trace = json.load(f)
+        path.unlink()
+        kernels = [ev for ev in trace.get('traceEvents', [])
+                   if ev.get('cat') == 'kernel']
+        if kernels and len(kernels) % reps == 0:
             break
     check(kernels, f"probes: {PROFILE_TRIES} profiler sessions saw no "
           f"device kernel")
-    path = _build.BUILD_DIR / 'probe_trace.json'
-    prof.export_chrome_trace(str(path))
-    with open(path) as f:
-        trace = json.load(f)
-    path.unlink()
-    grids = {}
-    for ev in trace.get('traceEvents', []):
-        args = ev.get('args', {})
-        if ev.get('cat') == 'kernel' and 'grid' in args:
-            grids[ev['name'][:80]] = (f"{int(np.prod(args['grid']))} x "
-                                      f"{int(np.prod(args['block']))}")
-    us = sum(e.time_range.end - e.time_range.start for e in kernels)
-    return {'device_ms': us / 1e3 / reps,
-            'kernels_per_call': len(kernels) / reps, 'grids': grids}
+    grids = {ev['name'][:80]: (f"{int(np.prod(ev['args']['grid']))} x "
+                               f"{int(np.prod(ev['args']['block']))}")
+             for ev in kernels if 'grid' in ev.get('args', {})}
+    per_call = len(kernels) / reps
+    return {'device_ms': float(np.median([ev['dur'] for ev in kernels]))
+            / 1e3 * max(1, round(per_call)),
+            'kernels_per_call': per_call, 'grids': grids}
 
 
 def host_ms(fn, reps):
@@ -881,23 +890,32 @@ def dot_host_parts(a, b):
     return {key: host_ms(fn, HOST_REPS) for key, fn in parts.items()}
 
 
-def dot_turns(kern, library):
+def turns(kern, library, reps, host=False):
     """``kern`` and ``library`` in turns (kernel, library, library,
-    kernel), each turn ``DOT_REPS`` calls between CUDA events (``ms``,
-    the kernel table's column), the same calls' host time without a
-    synchronize (``host_ms``), then ``DOT_REPS`` more under the profiler
-    (``device_ms``); returns the means of each pair of turns and the
-    turns themselves."""
-    turns = [{'ms': time_ms(fn, DOT_REPS), 'host_ms': host_ms(fn, DOT_REPS),
-              **profile_calls(fn, DOT_REPS)}
-             for fn in (kern, library, library, kern)]
-    k, lib = (turns[0], turns[3]), (turns[1], turns[2])
+    kernel), each turn ``reps`` calls between CUDA events (``ms``, the
+    kernel table's column), with ``host`` the same calls' host time
+    without a synchronize (``host_ms``), then ``reps`` more under the
+    profiler (``device_ms``, and the launch grid); returns the means of
+    each pair of turns and the turns themselves.  Both run ``reps`` times
+    untimed first: on an H100 the first turn after other work
+    (``hold_exact``'s comparison) read up to 1.5% slow, which the order
+    would charge to the kernel alone."""
+    keys = ('ms', 'host_ms', 'device_ms') if host else ('ms', 'device_ms')
+    for fn in (kern, library):
+        time_ms(fn, reps)
+    runs = []
+    for fn in (kern, library, library, kern):
+        run = {'ms': time_ms(fn, reps)}
+        if host:
+            run['host_ms'] = host_ms(fn, reps)
+        runs.append({**run, **profile_calls(fn, reps)})
+    k, lib = (runs[0], runs[3]), (runs[1], runs[2])
     r = {}
-    for key in ('ms', 'host_ms', 'device_ms'):
+    for key in keys:
         r[key] = (k[0][key] + k[1][key]) / 2
         r[f'library_{key}'] = (lib[0][key] + lib[1][key]) / 2
-    r.update(grid=turns[0]['grids'], library_grid=turns[1]['grids'],
-             turns=turns)
+    r.update(grid=runs[0]['grids'], library_grid=runs[1]['grids'],
+             turns=runs)
     return r
 
 
@@ -1005,9 +1023,9 @@ def phase_probes(out, name):
              'rel_err_vs_f64': err,
              'plain_rel_err_vs_f64': bw.rel_err(want, a, b),
              'library_rel_err_vs_f64': bw.rel_err(lib, a, b),
-             **dot_turns(lambda: bw.dot(ad, bd, prec),
-                         lambda: bw.library_matmul(ad, bd,
-                                                   tf32=prec == 'tf32')),
+             **turns(lambda: bw.dot(ad, bd, prec),
+                     lambda: bw.library_matmul(ad, bd, tf32=prec == 'tf32'),
+                     DOT_REPS, host=True),
              'plain_ms': time_ms(lambda: bw.dot_plain(ad, bd), DOT_REPS)}
         record(f'dot_{prec}', prec, r, *dot_bound)
         check(lo <= err <= hi, f"probes: {prec} dot rel-err {err:.3g} "
@@ -1619,7 +1637,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default=None,
                     help="also append the JSON lines to this file")
+    ap.add_argument('--phases', default=','.join(PHASES),
+                    help="comma-separated phases to run, in their fixed "
+                         "order (default: all)")
     args = ap.parse_args(argv)
+    phases = args.phases.split(',')
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}; known: {PHASES}")
 
     import torch
 
@@ -1637,16 +1662,21 @@ def main(argv=None):
     name = torch.cuda.get_device_name(0)
 
     out = open(args.out, 'a') if args.out else None
+    runs = {'build': lambda: phase_build(out),
+            'kernels': lambda: phase_kernels(out, name),
+            'parity': lambda: phase_parity(out),
+            'paths': lambda: phase_paths(out, name),
+            'probes': lambda: phase_probes(out, name),
+            'main_path': lambda: phase_main_path(out, name),
+            'dm': lambda: phase_dm(out),
+            'tn': lambda: phase_tn(out, name)}
     try:
-        phase_build(out)
-        phase_kernels(out, name)
-        phase_parity(out)
-        paths = phase_paths(out, name)
-        probes = phase_probes(out, name)
-        main = phase_main_path(out, name)
-        phase_dm(out)
-        phase_tn(out, name)
-        emit({'kernels': main + paths + probes}, out)
+        summary = {}
+        for phase in PHASES:
+            if phase in phases:
+                summary[phase] = runs[phase]() or []
+        emit({'kernels': [k for phase in ('main_path', 'paths', 'probes')
+                          for k in summary.get(phase, [])]}, out)
         print(card_power(), flush=True)
         # count: the one card the run used (device 0)
         print(json.dumps({'ok': True, 'device': {

@@ -13,21 +13,37 @@
 // 2 * rows * cols * 4 bytes over 3.35 TB/s (1.28 ms at the probes' 2 GiB,
 // H100 SXM); one multiply per float is nothing beside it.
 //
+// What decides the rate on an H100 is the order in which the card walks
+// the array and how much of it is in flight at once.  Blocks that the
+// hardware starts in the order of the array keep the data in flight in a
+// narrow band that sweeps front to back; persistent blocks that each walk
+// their own units (b, b + grid, ...) drift apart, widen the band and read
+// slower, however many loads each keeps in flight.  A band much wider than
+// some 64 KiB an SM (8 MiB on the card) costs a little too.
+//
 // Design:
-//   * hq_scale / hq_scale_inplace: the Pallas grid runs in order on one
-//     core; here a block loops over whole tiles of tile_rows rows (tile t,
-//     t + gridDim.x, ...), each thread moving 16-byte vectors, four loads
-//     in flight before their four stores.  Input and output pointers carry
-//     no __restrict__: the in-place entry point passes one pointer as both.
-//   * hq_scale_pipelined: one persistent block per SM with an nbuf-stage
-//     ring in shared memory.  Thread 0 fills a stage with one TMA bulk copy
-//     (cp.async.bulk global -> shared, completing on the stage's mbarrier),
-//     all threads scale the stage in place (the TPU kernel's separate in
-//     and out buffers would double the shared memory), and thread 0 writes
-//     it back with a bulk copy shared -> global.  A stage is refilled once
-//     its store has read it (cp.async.bulk.wait_group.read), so nbuf - 1
-//     loads and one store are in flight while a stage is scaled.  The ring
-//     holds nbuf * chunk_rows * cols * 4 bytes, at most 227 KB.
+//   * hq_scale / hq_scale_inplace: the Pallas grid walks its tiles in
+//     order, and so does the card's.  Tile t (tile_rows rows) is cut into
+//     chunks of kTileThreads 16-byte vectors (8 KiB), one vector a thread;
+//     block (c, t) of the two-dimensional grid takes chunk c of tile t, so
+//     blocks start in the order of the array (x fastest), as PyTorch's
+//     elementwise kernels do; no index is divided.  Every byte is touched
+//     once, so loads and stores carry the streaming hint (ld.global.cs /
+//     st.global.cs, evict first).  The in-place entry point passes one
+//     pointer as both arrays: the pointers carry no __restrict__ and the
+//     loads stay coherent (ld.global.cs, never the read-only ld.global.nc
+//     path of __ldg).
+//   * hq_scale_pipelined: block b takes the nbuf units (chunk_rows rows
+//     each) b * nbuf, ..., b * nbuf + nbuf - 1 into its nbuf stages in
+//     shared memory, so blocks start in the order of the array.  Thread 0
+//     issues the nbuf TMA bulk loads at once (cp.async.bulk global ->
+//     shared, each completing on its stage's `full` mbarrier); kConsumers
+//     threads scale each stage in place as it lands and arrive on its
+//     `done` mbarrier, one arrival a warp; thread 0 then writes the stage
+//     back with a bulk copy shared -> global.  Each stage is filled once,
+//     so no load waits for a store.  The dynamic shared memory is padded so
+//     that an SM holds only as many blocks as keep about kInFlightBytes of
+//     loads in flight (at least one).
 //
 // Indexing is 64-bit: the probes' array is 2^31 bytes.
 
@@ -38,102 +54,104 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTileThreads = 512;               // a chunk: 8 KiB
+constexpr int64_t kMaxGridY = 65535;
+constexpr int kConsumers = 256;
+constexpr int kRingThreads = kConsumers + 32;   // and one producer warp
 constexpr int kUnroll = 4;
-constexpr int kBlocksPerSm = 8;
-constexpr int kRingThreads = 256;
 constexpr int kMaxBuf = 8;
 constexpr int kMaxRingBytes = 227 * 1024;
+constexpr int kInFlightBytes = 64 * 1024;       // loads in flight an SM
+constexpr int kStaticSmem = 2 * kMaxBuf * 8;    // the stages' mbarriers
 
 __device__ __forceinline__ float4 twice(float4 v) {
   return make_float4(2.f * v.x, 2.f * v.y, 2.f * v.z, 2.f * v.w);
 }
 
-// out[i] = 2 * in[i] over n4 vectors, in tiles of tile4 vectors; `in` and
-// `out` may be the same array.
-__global__ void __launch_bounds__(kThreads)
+// out[i] = 2 * in[i] over n4 vectors in tiles of tile4 vectors: block
+// (c, t) takes chunk c of tile t, then of tiles t + gridDim.y, ...; `in`
+// and `out` may be the same array.
+__global__ void __launch_bounds__(kTileThreads)
 scale_tiles_kernel(const float4* in, float4* out, int64_t n4, int64_t tile4,
                    int64_t n_tiles) {
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int64_t lo = t * tile4;
-    const int64_t hi = lo + tile4 < n4 ? lo + tile4 : n4;
-    for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads * kUnroll) {
-      float4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t j = i + u * kThreads;
-        if (j < hi) v[u] = in[j];
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int64_t j = i + u * kThreads;
-        if (j < hi) out[j] = twice(v[u]);
-      }
-    }
+  for (int64_t t = blockIdx.y; t < n_tiles; t += gridDim.y) {
+    const int64_t j =
+        t * tile4 + (int64_t)blockIdx.x * kTileThreads + threadIdx.x;
+    const int64_t end = t * tile4 + tile4 < n4 ? t * tile4 + tile4 : n4;
+    if (j < end) __stcs(out + j, twice(__ldcs(in + j)));
   }
 }
 
-// The ring: unit u is rows [u * chunk_rows, (u + 1) * chunk_rows); block b
-// takes units b, b + gridDim.x, ...
+// The stages: unit u is floats [u * chunk, (u + 1) * chunk) of `total`;
+// block b takes unit b * nbuf + s into stage s.
 __global__ void __launch_bounds__(kRingThreads)
 scale_ring_kernel(const float* __restrict__ x, float* __restrict__ out,
                   int64_t total, int64_t chunk, int nbuf) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[kMaxBuf];
+  __shared__ __align__(8) uint64_t bars[2 * kMaxBuf];
+  uint64_t* full = bars;             // stage loaded
+  uint64_t* done = bars + kMaxBuf;   // stage scaled
   float* ring = reinterpret_cast<float*>(smem);
-  const int64_t n_units = (total + chunk - 1) / chunk;
-  const int64_t m = (int64_t)blockIdx.x < n_units
-                        ? (n_units - 1 - blockIdx.x) / gridDim.x + 1
-                        : 0;
-  const bool issuer = threadIdx.x == 0;
-  auto unit_of = [&](int64_t i) { return blockIdx.x + i * gridDim.x; };
-  auto floats_of = [&](int64_t u) {
-    return total - u * chunk < chunk ? total - u * chunk : chunk;
-  };
-  auto fill = [&](int64_t i) {  // load the block's i-th unit
-    const int s = (int)(i % nbuf);
-    const int64_t u = unit_of(i);
-    const uint32_t bytes = (uint32_t)(floats_of(u) * 4);
-    tma::bar_expect(&bars[s], bytes);
-    tma::load(ring + s * chunk, x + u * chunk, bytes, &bars[s]);
+  const int64_t first = (int64_t)blockIdx.x * nbuf * chunk;
+  const int64_t left = total - first;
+  const int n = left < nbuf * chunk ? (int)((left + chunk - 1) / chunk)
+                                    : nbuf;  // stages this block fills
+  auto floats_of = [&](int s) {
+    return left - s * chunk < chunk ? left - s * chunk : chunk;
   };
 
-  if (issuer) {
-    for (int s = 0; s < nbuf; ++s) tma::bar_init(&bars[s], 1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < n; ++s) {
+      tma::bar_init(&full[s], 1);
+      tma::bar_init(&done[s], kConsumers / 32);
+    }
     tma::fence_bar_init();
-  }
-  __syncthreads();
-  if (issuer)
-    for (int64_t i = 0; i < nbuf && i < m; ++i) fill(i);
-
-  for (int64_t i = 0; i < m; ++i) {
-    const int s = (int)(i % nbuf);
-    const int64_t u = unit_of(i);
-    const int64_t nf = floats_of(u);
-    tma::bar_wait(&bars[s], (uint32_t)((i / nbuf) & 1));
-    float4* st = reinterpret_cast<float4*>(ring + s * chunk);
-    for (int64_t j = threadIdx.x; j < nf / 4; j += kRingThreads)
-      st[j] = twice(st[j]);
-    tma::fence_async_smem();
-    __syncthreads();
-    if (issuer) {
-      tma::store(out + u * chunk, st, (uint32_t)(nf * 4));
-      tma::commit();
-      // the previous stage is free once its store has read it
-      if (i >= 1 && i - 1 + nbuf < m) {
-        tma::wait_read<1>();
-        fill(i - 1 + nbuf);
-      }
+    for (int s = 0; s < n; ++s) {
+      const uint32_t bytes = (uint32_t)(floats_of(s) * 4);
+      tma::bar_expect(&full[s], bytes);
+      tma::load(ring + s * chunk, x + first + s * chunk, bytes, &full[s]);
     }
   }
-  if (issuer) tma::wait_all();
+  __syncthreads();
+
+  if (threadIdx.x < 32) {  // the producer warp: thread 0 stores each stage
+    if (threadIdx.x != 0) return;
+    for (int s = 0; s < n; ++s) {
+      tma::bar_wait(&done[s], 0);
+      tma::store(out + first + s * chunk, ring + s * chunk,
+                 (uint32_t)(floats_of(s) * 4));
+      tma::commit();
+    }
+    tma::wait_read<0>();  // shared memory lives until the stores read it
+    return;
+  }
+
+  const int t = threadIdx.x - 32;
+  for (int s = 0; s < n; ++s) {
+    const int n4 = (int)(floats_of(s) / 4);
+    float4* st = reinterpret_cast<float4*>(ring + s * chunk);
+    tma::bar_wait(&full[s], 0);
+    // kUnroll loads from shared memory in flight, then their stores
+    for (int j = t; j < n4; j += kConsumers * kUnroll) {
+      float4 v[kUnroll];
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q)
+        if (j + q * kConsumers < n4) v[q] = st[j + q * kConsumers];
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q)
+        if (j + q * kConsumers < n4) st[j + q * kConsumers] = twice(v[q]);
+    }
+    tma::fence_async_smem();
+    __syncwarp();
+    if ((t & 31) == 0) tma::bar_arrive(&done[s]);
+  }
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
+int device_attribute(cudaDeviceAttr what) {
+  int dev = 0, v = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
+  cudaDeviceGetAttribute(&v, what, dev);
+  return v;
 }
 
 int launch_tiles(const float* in, float* out, int64_t rows, int cols,
@@ -142,12 +160,16 @@ int launch_tiles(const float* in, float* out, int64_t rows, int cols,
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
   const int64_t n4 = rows * cols / 4;
-  const int64_t tile4 = (int64_t)tile_rows * cols / 4;
-  const int64_t n_tiles = (rows + tile_rows - 1) / tile_rows;
-  const int64_t cap = (int64_t)sm_count() * kBlocksPerSm;
-  const unsigned grid = (unsigned)(n_tiles < cap ? n_tiles : cap);
-  scale_tiles_kernel<<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const int64_t tile4 = (int64_t)(tile_rows < rows ? tile_rows : rows) *
+                        cols / 4;
+  const int64_t n_tiles = (n4 + tile4 - 1) / tile4;
+  const int64_t per_tile = (tile4 + kTileThreads - 1) / kTileThreads;
+  if (per_tile > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // grid.x: the chunks of a tile; grid.y: tiles, looped past its limit
+  const dim3 grid((unsigned)per_tile,
+                  (unsigned)(n_tiles < kMaxGridY ? n_tiles : kMaxGridY));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  scale_tiles_kernel<<<grid, kTileThreads, 0, s>>>(
       reinterpret_cast<const float4*>(in), reinterpret_cast<float4*>(out),
       n4, tile4, n_tiles);
   return (int)cudaGetLastError();
@@ -168,8 +190,8 @@ extern "C" int hq_scale_inplace(float* x, int64_t rows, int cols,
   return launch_tiles(x, x, rows, cols, tile_rows, stream);
 }
 
-// out = 2 * x through an nbuf-stage ring of chunk_rows-row stages in
-// shared memory (2 <= nbuf <= 8, nbuf * chunk_rows * cols * 4 <= 227 KB).
+// out = 2 * x through nbuf stages of chunk_rows rows in shared memory a
+// block (2 <= nbuf <= 8, nbuf * chunk_rows * cols * 4 <= 227 KB).
 extern "C" int hq_scale_pipelined(const float* x, float* out, int64_t rows,
                                   int cols, int chunk_rows, int nbuf,
                                   void* stream) {
@@ -180,15 +202,25 @@ extern "C" int hq_scale_pipelined(const float* x, float* out, int64_t rows,
   const int64_t ring_bytes = chunk * 4 * nbuf;
   if (ring_bytes > kMaxRingBytes) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
+  const int64_t units = (rows + chunk_rows - 1) / chunk_rows;
+  const int64_t n_blocks = (units + nbuf - 1) / nbuf;
+  if (n_blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // pad the shared memory so that an SM holds at most per_sm blocks
+  const int64_t per_sm =
+      ring_bytes < kInFlightBytes ? kInFlightBytes / ring_bytes : 1;
+  int64_t smem =
+      device_attribute(cudaDevAttrMaxSharedMemoryPerMultiprocessor) /
+          per_sm -
+      device_attribute(cudaDevAttrReservedSharedMemoryPerBlock) -
+      kStaticSmem;
+  if (smem > kMaxRingBytes) smem = kMaxRingBytes;
+  if (smem < ring_bytes) smem = ring_bytes;
   cudaError_t err = cudaFuncSetAttribute(
       scale_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ring_bytes);
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t n_units = (rows + chunk_rows - 1) / chunk_rows;
-  const int64_t sms = sm_count();
-  const unsigned grid = (unsigned)(n_units < sms ? n_units : sms);
-  scale_ring_kernel<<<grid, kRingThreads, (size_t)ring_bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  scale_ring_kernel<<<(unsigned)n_blocks, kRingThreads, (size_t)smem, s>>>(
       x, out, rows * cols, chunk, nbuf);
   return (int)cudaGetLastError();
 }

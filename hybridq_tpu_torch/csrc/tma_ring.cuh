@@ -36,6 +36,14 @@ __device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// One plain arrival (release: this thread's earlier writes are seen by
+// whoever waits on the phase).
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 // Spin until the phase of parity `parity` of `bar` has completed.
 __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_addr(bar);

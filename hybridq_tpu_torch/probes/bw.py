@@ -3,12 +3,14 @@
 The counterpart of ``scripts/probe_pallas_bw.py``:
 
   * ``scale(x, tile_rows, out=None)``: ``out = 2 * x`` out of place, a grid
-    of 16-byte loads and stores in which each block loops over tiles of
-    ``tile_rows`` rows (``mk_auto``);
+    over tiles of ``tile_rows`` rows, each cut into blocks of 8 KiB (one
+    16-byte load and store a thread) that start in the order of the array
+    (``mk_auto``);
   * ``scale_(x, tile_rows)``: the same in place (``mk_auto_aliased``);
   * ``scale_pipelined(x, chunk_rows, nbuf)``: the same copy streamed by
-    hand through an ``nbuf``-stage ring of ``chunk_rows``-row stages in
-    shared memory, filled and drained by TMA bulk copies (``mk_manual``);
+    hand through ``nbuf`` stages of ``chunk_rows`` rows in shared memory a
+    block, each filled by a TMA bulk load and drained by a TMA bulk store
+    (``mk_manual``);
   * ``dot(a, b, precision)``: one 128 x 128 x 128 f32 product on the
     tensor cores, one TF32 pass (``'tf32'``, the TPU's default-precision
     dot) or the 3xTF32 split (``'3xtf32'``, its ``Precision.HIGHEST``).
@@ -44,7 +46,7 @@ from hybridq_tpu_torch.simulation import fused_kernels as fk
 
 __all__ = ['scale', 'scale_', 'scale_pipelined', 'scale_plain', 'dot',
            'dot_plain', 'Variant', 'VARIANTS', 'run_variant', 'describe',
-           'main', 'reset_counts', 'counts']
+           'blocks_per_sm', 'main', 'reset_counts', 'counts']
 
 R, C = 2 ** 19, 1024           # 2 GiB of f32
 NBYTES = R * C * 4
@@ -53,6 +55,7 @@ DOT_N = 128
 PRECISIONS = {'tf32': 1, '3xtf32': 3}
 MAX_BUF = 8
 MAX_RING_BYTES = 227 * 1024     # shared memory a block can have
+IN_FLIGHT_BYTES = 64 * 1024     # loads in flight an SM (stream_scale.cu)
 _I64 = ctypes.c_int64
 
 scale_launches = 0
@@ -124,9 +127,39 @@ def _out_like(x: torch.Tensor, out) -> torch.Tensor:
     return out
 
 
+# the C functions of csrc/stream_scale.cu and their arguments
+_STREAM_ARGS = {
+    # x, out, rows, cols, tile_rows, stream
+    'hq_scale': [fk._PTR, fk._PTR, _I64, fk._INT, fk._INT, fk._PTR],
+    # x, rows, cols, tile_rows, stream
+    'hq_scale_inplace': [fk._PTR, _I64, fk._INT, fk._INT, fk._PTR],
+    # x, out, rows, cols, chunk_rows, nbuf, stream
+    'hq_scale_pipelined': [fk._PTR, fk._PTR, _I64, fk._INT, fk._INT,
+                           fk._INT, fk._PTR],
+}
+
+
+@functools.cache
+def _stream_fn(name: str):
+    """``name`` of ``csrc/stream_scale.cu``, resolved once."""
+    return fk._c_function('stream_scale', name, _STREAM_ARGS[name])
+
+
+def _stream_launch(name: str, x: torch.Tensor, *args) -> int:
+    """``name(*args, stream)`` on ``x``'s card.  A run of calls is timed
+    from its first call's host time on, so, as in ``dot``, the function
+    is resolved once and the card's context entered only when another
+    card is current."""
+    fn, stream = _stream_fn(name), fk._stream(x)
+    if x.device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(x.device):
+        return fn(*args, stream)
+
+
 def scale(x: torch.Tensor, tile_rows: int, out=None) -> torch.Tensor:
     """``2 * x`` into ``out`` (a new tensor by default, never overlapping
-    ``x``), a block looping over tiles of ``tile_rows`` rows."""
+    ``x``), a grid over tiles of ``tile_rows`` rows."""
     global scale_launches
     rows, cols = _shape_of(x)
     tile_rows = _positive(tile_rows, 'tile_rows')
@@ -134,12 +167,8 @@ def scale(x: torch.Tensor, tile_rows: int, out=None) -> torch.Tensor:
     if not fk._kernel_device(x):
         return out.copy_(scale_plain(x))
     _aligned(x, out)
-    # x, out, rows, cols, tile_rows, stream
-    fn = fk._c_function('stream_scale', 'hq_scale',
-                        [fk._PTR, fk._PTR, _I64, fk._INT, fk._INT, fk._PTR])
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), rows, cols, tile_rows,
-                 fk._stream(x))
+    err = _stream_launch('hq_scale', x, x.data_ptr(), out.data_ptr(), rows,
+                         cols, tile_rows)
     fk._check_launch(err, f"stream_scale ({rows}x{cols}, tile {tile_rows})")
     scale_launches += 1
     return out
@@ -153,11 +182,8 @@ def scale_(x: torch.Tensor, tile_rows: int) -> torch.Tensor:
     if not fk._kernel_device(x):
         return x.copy_(scale_plain(x))
     _aligned(x)
-    # x, rows, cols, tile_rows, stream
-    fn = fk._c_function('stream_scale', 'hq_scale_inplace',
-                        [fk._PTR, _I64, fk._INT, fk._INT, fk._PTR])
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), rows, cols, tile_rows, fk._stream(x))
+    err = _stream_launch('hq_scale_inplace', x, x.data_ptr(), rows, cols,
+                         tile_rows)
     fk._check_launch(err, f"stream_scale_inplace ({rows}x{cols}, tile "
                           f"{tile_rows})")
     scale_inplace_launches += 1
@@ -166,8 +192,8 @@ def scale_(x: torch.Tensor, tile_rows: int) -> torch.Tensor:
 
 def scale_pipelined(x: torch.Tensor, chunk_rows: int, nbuf: int = 2,
                     out=None) -> torch.Tensor:
-    """``2 * x`` into ``out`` (as in ``scale``) through an ``nbuf``-stage
-    ring of ``chunk_rows``-row stages in shared memory (at most 227 KB in
+    """``2 * x`` into ``out`` (as in ``scale``) through ``nbuf`` stages of
+    ``chunk_rows`` rows in shared memory a block (at most 227 KB in
     all)."""
     global pipelined_launches
     rows, cols = _shape_of(x)
@@ -182,13 +208,8 @@ def scale_pipelined(x: torch.Tensor, chunk_rows: int, nbuf: int = 2,
     if not fk._kernel_device(x):
         return out.copy_(scale_plain(x))
     _aligned(x, out)
-    # x, out, rows, cols, chunk_rows, nbuf, stream
-    fn = fk._c_function('stream_scale', 'hq_scale_pipelined',
-                        [fk._PTR, fk._PTR, _I64, fk._INT, fk._INT, fk._INT,
-                         fk._PTR])
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), rows, cols, chunk_rows, nbuf,
-                 fk._stream(x))
+    err = _stream_launch('hq_scale_pipelined', x, x.data_ptr(),
+                         out.data_ptr(), rows, cols, chunk_rows, nbuf)
     fk._check_launch(err, f"stream_scale_pipelined ({rows}x{cols}, "
                           f"{nbuf} x {chunk_rows} rows)")
     pipelined_launches += 1
@@ -311,6 +332,13 @@ def run_variant(v: Variant, x: torch.Tensor, out=None) -> torch.Tensor:
     raise ValueError(f"unknown variant kind {v.kind!r}")
 
 
+def blocks_per_sm(v: Variant) -> int:
+    """Blocks of a ``'manual'`` variant that an SM holds: as many as keep
+    ``IN_FLIGHT_BYTES`` of loads in flight, at least one."""
+    ring = v.nbuf * v.rows * C * 4
+    return max(1, IN_FLIGHT_BYTES // ring)
+
+
 def describe(v: Variant) -> str:
     """How the card runs variant ``v`` at the script's width."""
     kib = v.rows * C * 4 / 1024
@@ -318,11 +346,13 @@ def describe(v: Variant) -> str:
         return "torch.mul(x, 2), the library yardstick"
     if v.kind in ('auto', 'aliased'):
         place = 'in place' if v.kind == 'aliased' else 'out of place'
-        return (f"grid of 16-byte loads, blocks loop over tiles of {v.rows} "
-                f"rows ({kib:g} KiB), {place}")
-    return (f"TMA ring of {v.nbuf} stages of {v.rows} rows ({kib:g} KiB "
-            f"each, {v.nbuf * kib:g} KiB of shared memory), one block per "
-            f"SM (the script's {v.S} rows do not fit)")
+        return (f"grid over tiles of {v.rows} rows ({kib:g} KiB) in blocks "
+                f"of 8 KiB, one 16-byte load a thread, in array order, "
+                f"{place}")
+    return (f"{v.nbuf} TMA-filled stages of {v.rows} rows ({kib:g} KiB "
+            f"each, {v.nbuf * kib:g} KiB of shared memory) a block, blocks "
+            f"in array order, {blocks_per_sm(v)} an SM (the script's {v.S} "
+            f"rows do not fit)")
 
 
 def card_line() -> str:

@@ -74,6 +74,10 @@ def test_card_mapping_fits_shared_memory():
             assert v.nbuf * v.rows * bw.C * 4 <= bw.MAX_RING_BYTES
             assert v.S // v.rows == 64
             assert f'{v.rows} rows' in bw.describe(v)
+            # as many blocks an SM as keep 64 KiB of loads in flight
+            per_sm = max(1, 64 * 1024 // (v.nbuf * v.rows * bw.C * 4))
+            assert bw.blocks_per_sm(v) == per_sm
+            assert f'{per_sm} an SM' in bw.describe(v)
         elif v.kind in ('auto', 'aliased'):
             assert v.rows == v.S
 

@@ -308,6 +308,14 @@ def test_cuda_fused_k4_matches_plain(n, bits, cuda):
     ('aliased', 64, 1024, 16, 0), ('aliased', 100, 256, 7, 0),
     ('manual', 64, 1024, 4, 2), ('manual', 100, 256, 8, 2),
     ('manual', 97, 256, 4, 4),
+    # 32 MiB: many tiles and blocks, an SM holding several in turn
+    ('auto', 8192, 1024, 512, 0), ('aliased', 8192, 1024, 512, 0),
+    # more tiles than the grid's 65535 rows: tiles looped over
+    ('auto', 70000, 4, 1, 0), ('aliased', 70001, 4, 1, 0),
+    # the probe's mappings (S = 256, 512, 1024 x2buf; S = 256 x4buf) on
+    # row counts that leave a partial last stage and block
+    ('manual', 8195, 1024, 4, 2), ('manual', 1001, 1024, 8, 2),
+    ('manual', 8200, 1024, 16, 2), ('manual', 8190, 1024, 4, 4),
 ])
 def test_cuda_stream_scale_matches_plain(kind, rows, cols, tile, nbuf, cuda):
     x = torch.randn(rows, cols, generator=torch.Generator().manual_seed(rows))
@@ -320,6 +328,18 @@ def test_cuda_stream_scale_matches_plain(kind, rows, cols, tile, nbuf, cuda):
            'manual': 'stream_scale_pipelined'}[kind]
     assert bw.counts()[key] == 1
     assert torch.equal(got, bw.scale_plain(x))
+
+
+@pytest.mark.parametrize('offset', [1, 37])
+def test_cuda_stream_scale_inplace_view(offset, cuda):
+    """``scale_`` on a view that starts ``offset`` rows into its array:
+    the view doubles, the rows before it stay."""
+    x = torch.randn(300, 1024, generator=torch.Generator().manual_seed(7))
+    x = x.to(cuda)
+    want = torch.cat([x[:offset], bw.scale_plain(x[offset:])])
+    assert bw.scale_(x[offset:], 64).data_ptr() == x[offset:].data_ptr()
+    torch.cuda.synchronize()
+    assert torch.equal(x, want)
 
 
 @pytest.mark.parametrize('kind, rows', [('auto', 16), ('manual', 4)])

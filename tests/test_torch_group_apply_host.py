@@ -75,7 +75,11 @@ struct dim3 {
 typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount,
+  cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+  cudaDevAttrReservedSharedMemoryPerBlock
+};
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local std::barrier<>* hq_block_barrier = nullptr;
@@ -105,8 +109,11 @@ inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return cudaSuccess;
 }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = hq_sms;
+// an H100's shared memory: 228 KiB an SM, 1 KiB of it reserved a block
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr what, int) {
+  *v = what == cudaDevAttrMultiProcessorCount ? hq_sms
+       : what == cudaDevAttrMaxSharedMemoryPerMultiprocessor ? 233472
+                                                             : 1024;
   return cudaSuccess;
 }
 
@@ -176,11 +183,13 @@ inline hq_config hq_cfg(dim3 grid, dim3 block, size_t smem = 0,
 }
 inline hq_config hq_last;   // the configuration of the last launch
 
-// Blocks one after another; each CUDA thread of a block a std::thread.
+// Blocks one after another (x fastest); each CUDA thread of a block a
+// std::thread.
 template <class F, class... A>
 void hq_launch(F kernel, hq_config c, A... args) {
   hq_last = c;
   const unsigned nt = c.block.x;
+  for (unsigned by = 0; by < c.grid.y; ++by)
   for (unsigned b = 0; b < c.grid.x; ++b) {
     std::barrier<> bar(nt);
     std::unique_ptr<hq_warp[]> warps(new hq_warp[nt / 32]);
@@ -189,7 +198,7 @@ void hq_launch(F kernel, hq_config c, A... args) {
     for (unsigned t = 0; t < nt; ++t)
       threads.emplace_back([&, t] {
         threadIdx = dim3(t);
-        blockIdx = dim3(b);
+        blockIdx = dim3(b, by);
         blockDim = c.block;
         gridDim = c.grid;
         hq_block_barrier = &bar;
@@ -202,10 +211,12 @@ void hq_launch(F kernel, hq_config c, A... args) {
   }
 }
 
-// grid.x, block.x and dynamic shared bytes of the last launch
+// grid.x, block.x, dynamic shared bytes and grid.y of the last launch
 extern "C" long long hq_host_last_launch(int what) {
-  return what == 0 ? hq_last.grid.x
-                   : what == 1 ? hq_last.block.x : (long long)hq_last.smem;
+  return what == 0   ? hq_last.grid.x
+         : what == 1 ? hq_last.block.x
+         : what == 2 ? (long long)hq_last.smem
+                     : hq_last.grid.y;
 }
 '''
 
