@@ -45,7 +45,13 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              and read just after, and must keep the norm; then each case
              is held against its plain version (max|d|/rms <= 1e-5) and
              timed with its bound and one PyTorch call of the same
-             function;
+             function: ``apply_factored`` and its ``torch.einsum`` run 3
+             times each untimed, then in turns (kernel, library, library,
+             kernel), each turn 3 calls between CUDA events (``ms``) and
+             3 under ``torch.profiler`` (``device_ms`` and the launch
+             grid), with the factor kernel over library (``vs_library``)
+             and its 3xTF32 bound where a factor runs on the tensor cores
+             (``bound_fp32_ms`` beside it);
   main_path  n = 30 (8 GiB of state), the workload of ``bench.py``: 24
              random 4-qubit unitaries avoiding bits 0-2.  First through
              ``simulate(..., optimize='evolution')`` (the straight engine
@@ -100,7 +106,9 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              launch grid), kernel and library writing the same tensor
              (``torch.mul(x, 2, out=y)`` beside ``scale(x, ..., out=y)``,
              ``y.mul_(2)`` in place), beside its bound and its plain
-             version; and the TF32 and 3xTF32 dots on the scripts' inputs
+             version; the same for ``gather_scale_`` on one run of the
+             whole array (the array's own order: what the scramble
+             costs); and the TF32 and 3xTF32 dots on the scripts' inputs
              against float64 (rel-err in [1e-5, 1e-2] for one TF32 pass:
              f32 accuracy there would mean no tensor cores; <= 1e-5 for
              3xTF32), beside ``torch.matmul``: their ptxas registers and
@@ -160,7 +168,7 @@ PROBE_SUMMARY_CASE = {'stream_scale': 'B  auto S=512 (2MB)',
 PROBE_REPS = 10            # timed repetitions of each probe kernel
 DOT_REPS = 100             # calls in each timed turn of the 128^3 dots
 HOST_REPS = 1000           # calls timed for each host part of a dot call
-PROFILE_TRIES = 3          # torch.profiler sessions before giving up
+PROFILE_TRIES = 5          # torch.profiler sessions before CUDA events
 TOL = 1e-5                 # max|d|/rms, kernel against plain (f32 sums)
 # max|d| / max|amp| of simulate against the complex128 oracle: f32
 # evolution gives 6e-7 to 8e-7 at these depths on the card and on the CPU.
@@ -175,6 +183,8 @@ DM_TRACE_TOL = 1e-4
 PAIRED_SLACK = 1.1         # paired pass time over unpaired, at most
 MAX_COLUMN_K = 5           # column_apply_kernel: k <= 5; group_apply_kernel
 LOG_TILE = 13              # above, on tiles of 2^13 amplitudes
+FACTORED_COLUMN_K = 4      # factored_apply: kr + kl <= 4 in registers; the
+FACTORED_MMA_K = 5         # tiles beyond, factors of k >= 5 in 3xTF32
 NORM_TOL = 1e-4
 N_TN, TN_GATES, TN_OPEN = 26, 150, 10   # tn: get_rqc(26, 150), 10 open legs
 TN_MAX_TIME = 10           # simulate_tn's path-search budget (s)
@@ -272,6 +282,19 @@ def group_bound(n, k, name):
     bw, _, tf32 = peaks(name)
     t_bytes = 2 * 2 ** (n + 1) * 4 / bw
     t_ops = 3 * 8 * 2 ** (n + k) / tf32
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations (3xTF32)')
+
+
+def factored_bound(n, kr, kl, name):
+    """Least time (ms) of ``factored_apply``'s pass when a factor runs on
+    the tensor cores: the state's bytes, or each factor's flops
+    (8 * 2^(n+k)), 3xTF32 ones (k >= 5) three times at the TF32 peak,
+    the others at the fp32 peak."""
+    bw, flops, tf32 = peaks(name)
+    t_bytes = 2 * 2 ** (n + 1) * 4 / bw
+    t_ops = sum(3 * 8 * 2 ** (n + k) / tf32 if k >= FACTORED_MMA_K
+                else 8 * 2 ** (n + k) / flops for k in (kr, kl) if k)
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                        else 'operations (3xTF32)')
 
@@ -428,7 +451,8 @@ def phase_build(out):
           'nvcc': nvcc.strip().splitlines()[-1],
           'card': card_power(), 'ptxas': ptxas}, out)
     for kernel, count in (('column_apply_kernel', 5),
-                          ('group_apply_kernel', 3)):
+                          ('group_apply_kernel', 3),
+                          ('factored_apply_cu', 21), ('gather_runs_cu', 2)):
         found = {e: r for e, r in ptxas.items() if kernel in e}
         check(len(found) == count, f"build: {len(found)} {kernel} "
               f"instantiations in the ptxas output, not {count}")
@@ -702,13 +726,29 @@ def phase_paths(out, name):
                                                    lane_bits), rms)
         flops = 8 * 2 ** n * (2 ** kl + (2 ** kr if kr else 0))
         r['bound_ms'], r['bound_by'] = bound(n, kr + kl, name, flops)
-        # U_row (x) U_lane on the state viewed with the gate bits
-        # outermost, as one einsum (operands in the order that contracts
-        # U_lane first: U_row x U_lane alone would be 2^(2(kr+kl)) wide)
-        r['library_ms'] = library_ms(
-            lambda ul, psi, ur: torch.einsum('cd,bdr,ab->acr', ul, psi, ur),
-            (2 ** kl, 2 ** kl), (2 ** kr, 2 ** kl, 2 ** (n - kr - kl)),
-            (2 ** kr, 2 ** kr))
+        if kr + kl > FACTORED_COLUMN_K and max(kr, kl) >= FACTORED_MMA_K:
+            # factors of k >= 5 run on the tensor cores in 3xTF32
+            r['bound_fp32_ms'] = r['bound_ms']
+            r['bound_ms'], r['bound_by'] = factored_bound(n, kr, kl, name)
+        # the kernel and one einsum of U_row (x) U_lane on the state viewed
+        # with the gate bits outermost (operands in the order that
+        # contracts U_lane first: U_row x U_lane alone would be
+        # 2^(2(kr+kl)) wide), in turns
+        st = rand_state(n, gen)
+        gen_lib = torch.Generator(device='cuda')
+        gen_lib.manual_seed(SEED)
+        ops = [torch.randn(*sh, dtype=torch.complex64, device='cuda',
+                           generator=gen_lib)
+               for sh in ((2 ** kl, 2 ** kl),
+                          (2 ** kr, 2 ** kl, 2 ** (n - kr - kl)),
+                          (2 ** kr, 2 ** kr))]
+        r.update(turns(
+            lambda: fk.apply_factored(st, Ur, row_bits, Ul, lane_bits),
+            lambda: torch.einsum('cd,bdr,ab->acr', *ops), REPS, 'paths'))
+        r['vs_library'] = r['ms'] / r['library_ms']
+        r['of_bound'] = r['bound_ms'] / r['ms']
+        del st, ops
+        torch.cuda.empty_cache()
         if kl <= 2:
             # the swap route of the same gate, as FusedEvolver takes it
             bits = list(row_bits) + list(lane_bits)
@@ -807,20 +847,28 @@ def hold_exact(x, kern, plain, kern_ms, library):
     torch.cuda.synchronize()
     d = (got - want).abs_().max().item()
     del got, want
-    r = {'max_abs_err': d, **turns(kern_ms, library, PROBE_REPS, host=True),
+    r = {'max_abs_err': d, **turns(kern_ms, library, PROBE_REPS, 'probes',
+                                      host=True),
          'plain_ms': time_ms(lambda: plain(x), PROBE_REPS)}
     torch.cuda.empty_cache()
     return r
 
 
-def profile_calls(fn, reps):
+def profile_calls(fn, reps, where):
     """``fn()`` ``reps`` times under ``torch.profiler``: each device
     kernel's duration and launch grid (``blocks x threads``), read from the
-    exported trace.  ``device_ms`` is the median kernel's duration times the
-    kernels a call launches (one for every probe): a session sometimes
-    drops a kernel's record or stretches one, and the median ignores
-    either.  A session whose count of kernels is not a whole number a call
-    (none at all happened once in a fresh process) is run again."""
+    exported trace.  ``device_ms`` is the median kernel's duration where a
+    call launches one kernel (every probe): a session sometimes drops a
+    kernel's record or stretches one, and the median ignores either; where
+    a call launches several (a two-launch factored case, an einsum), it is
+    the sum of their durations over ``reps``.  A session whose count of
+    kernels is not a whole number a call is run again, up to
+    ``PROFILE_TRIES`` sessions, each retry noted on stderr.  Where no
+    session recorded a device kernel at all (CUPTI has returned none, for
+    every session of a process, on an H100), ``device_ms`` is the calls'
+    time between CUDA events instead, ``device_ms_from`` says so and the
+    grids are left empty: the profiler is a measuring aid here, and every
+    check of a kernel's values and launches stands without it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from hybridq_tpu_torch.simulation import _build
@@ -828,7 +876,7 @@ def profile_calls(fn, reps):
     fn()
     torch.cuda.synchronize()
     path = _build.BUILD_DIR / 'probe_trace.json'
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -842,14 +890,21 @@ def profile_calls(fn, reps):
                    if ev.get('cat') == 'kernel']
         if kernels and len(kernels) % reps == 0:
             break
-    check(kernels, f"probes: {PROFILE_TRIES} profiler sessions saw no "
-          f"device kernel")
+        print(f"chip_smoke: {where}: profiler session {attempt} of "
+              f"{PROFILE_TRIES} saw {len(kernels)} device kernels for "
+              f"{reps} calls", file=sys.stderr, flush=True)
+    if not kernels:
+        return {'device_ms': time_ms(fn, reps),
+                'device_ms_from': 'cuda events (the profiler saw no kernel)',
+                'kernels_per_call': None, 'grids': {}}
     grids = {ev['name'][:80]: (f"{int(np.prod(ev['args']['grid']))} x "
                                f"{int(np.prod(ev['args']['block']))}")
              for ev in kernels if 'grid' in ev.get('args', {})}
     per_call = len(kernels) / reps
-    return {'device_ms': float(np.median([ev['dur'] for ev in kernels]))
-            / 1e3 * max(1, round(per_call)),
+    durs = [ev['dur'] for ev in kernels]
+    device_ms = (float(np.median(durs)) if round(per_call) <= 1
+                 else sum(durs) / reps) / 1e3
+    return {'device_ms': device_ms, 'device_ms_from': 'torch.profiler',
             'kernels_per_call': per_call, 'grids': grids}
 
 
@@ -890,7 +945,7 @@ def dot_host_parts(a, b):
     return {key: host_ms(fn, HOST_REPS) for key, fn in parts.items()}
 
 
-def turns(kern, library, reps, host=False):
+def turns(kern, library, reps, where, host=False):
     """``kern`` and ``library`` in turns (kernel, library, library,
     kernel), each turn ``reps`` calls between CUDA events (``ms``, the
     kernel table's column), with ``host`` the same calls' host time
@@ -908,7 +963,7 @@ def turns(kern, library, reps, host=False):
         run = {'ms': time_ms(fn, reps)}
         if host:
             run['host_ms'] = host_ms(fn, reps)
-        runs.append({**run, **profile_calls(fn, reps)})
+        runs.append({**run, **profile_calls(fn, reps, where)})
     k, lib = (runs[0], runs[3]), (runs[1], runs[2])
     r = {}
     for key in keys:
@@ -994,6 +1049,18 @@ def phase_probes(out, name):
         check(r['max_abs_err'] == 0, f"probes: {v.name}: max|d| "
               f"{r['max_abs_err']} against its plain version")
         y.copy_(x)                      # keep the timed values finite
+    # what the scramble costs: the same kernel on one run of the whole
+    # array, whose virtual order is the array's own (not a probe variant)
+    r = hold_exact(
+        x, lambda t: gather.gather_scale_(t.clone(), gather.SUB, gather.SUB),
+        gather.gather_scale_plain,
+        lambda: gather.gather_scale_(y, gather.SUB, gather.SUB),
+        lambda: y.mul_(2))
+    emit({'phase': 'probes', 'kernel': 'gather_scale',
+          'case': 'one run (array order)', **r, 'bound_ms': t_bytes,
+          'bound_by': 'bytes', 'card': card}, out)
+    check(r['max_abs_err'] == 0, f"probes: gather_scale on one run: max|d| "
+          f"{r['max_abs_err']} against 2 * x")
     del x, y
     torch.cuda.empty_cache()
 
@@ -1025,7 +1092,7 @@ def phase_probes(out, name):
              'library_rel_err_vs_f64': bw.rel_err(lib, a, b),
              **turns(lambda: bw.dot(ad, bd, prec),
                      lambda: bw.library_matmul(ad, bd, tf32=prec == 'tf32'),
-                     DOT_REPS, host=True),
+                     DOT_REPS, 'probes', host=True),
              'plain_ms': time_ms(lambda: bw.dot_plain(ad, bd), DOT_REPS)}
         record(f'dot_{prec}', prec, r, *dot_bound)
         check(lo <= err <= hi, f"probes: {prec} dot rel-err {err:.3g} "

@@ -6,12 +6,14 @@ a ``[rows, 128]`` f32 array in place as runs of ``run_rows`` rows (512 B a
 row) taken in a scrambled order and written back where they came from:
 
   * ``gather_scale_(x, run_rows, blk_rows, matmul=False, nbuf=2)`` runs
-    ``csrc/gather_runs.cu`` on a CUDA tensor: one block per SM, an
-    ``nbuf``-stage ring in shared memory filled and drained by one TMA
-    bulk copy per run (or per stage of a run longer than a stage); the
-    body doubles each stage, or with ``matmul`` multiplies each 128-row
-    chunk by ``eye(128)`` in bf16 on the tensor cores, which rounds it to
-    bf16 (``mk_gather``);
+    ``csrc/gather_runs.cu`` on a CUDA tensor, blocks in the order of the
+    virtual rows: doubling, blocks of 32 virtual rows (16 KiB), 4 a warp,
+    one 16-byte vector a thread a row, in registers; with ``matmul``,
+    blocks of ``nbuf`` stages of ``stage_rows(blk_rows, nbuf)`` rows in
+    shared memory, each filled once by one TMA bulk copy per run (or per
+    stage of a run longer than a stage), multiplied chunk by chunk (128
+    rows) by ``eye(128)`` in bf16 on the tensor cores, which rounds it to
+    bf16, and written back (``mk_gather``);
   * ``gather_scale_plain`` is its plain version: ``2 * x`` or
     ``x.to(torch.bfloat16).float()`` (a run's order does not change what
     is written where);
@@ -20,11 +22,12 @@ row) taken in a scrambled order and written back where they came from:
   * ``split3_bf16(x)`` is the script's bf16x3 split check, host math.
 
 ``VARIANTS`` keeps the script's names in its order.  The script's VMEM
-steps of 1024-2048 rows (512 KB-1 MB) do not fit a block's shared memory:
-the card's stage is ``stage_rows(blk_rows, nbuf)`` rows (a 128 KiB ring),
-so the script's ``blk 2048`` variant runs the same launch as its
-``blk 1024`` one, and ``describe`` prints each mapping and names such
-twins.  Run on the card at the script's
+step (``blk_rows``) and ``nbuf`` shape only the matmul launch, whose
+stage is ``stage_rows(blk_rows, nbuf)`` rows (a ring of at most 128 KiB:
+the script's 512 KB-1 MB steps do not fit a block's shared memory); the
+doubling variants of one run length run the same launch whatever their
+step, and ``describe`` prints each mapping and names such twins.  Run on
+the card at the script's
 size (2 GiB of f32), with the 3xTF32 dot of ``bw.dot`` (the script's
 ``Precision.HIGHEST`` dot):
 
@@ -55,6 +58,8 @@ NBYTES = SUB * ROW_BYTES
 REPS = 4
 RING_BYTES = 128 * 1024         # the ring's shared memory
 MATMUL_CHUNK = 128              # rows of one identity product
+BLOCK_ROWS = 32                 # virtual rows a block of the doubling path
+WARP_ROWS = 4                   # consecutive ones a warp
 MAX_BUF = 8
 
 gather_launches = 0
@@ -186,25 +191,33 @@ def run_variant(v: GVariant, x: torch.Tensor) -> torch.Tensor:
 
 def _launch(v: GVariant):
     """What the card's launch of ``v`` depends on."""
-    return v.run_rows, stage_rows(v.blk_rows, v.nbuf), v.matmul, v.nbuf
+    if not v.matmul:
+        return v.run_rows, False
+    return v.run_rows, True, stage_rows(v.blk_rows, v.nbuf), v.nbuf
 
 
 def describe(v: GVariant) -> str:
     """How the card runs variant ``v``, naming any other variant whose
-    launch is the same (their script steps differ only above the cap)."""
+    launch is the same."""
+    twins = [w.name.strip() for w in VARIANTS
+             if w != v and _launch(w) == _launch(v)]
+    same = f"; the same launch as {', '.join(twins)}" if twins else ""
+    if not v.matmul:
+        return (f"runs of {v.run_rows * ROW_BYTES} B, x2 in registers: "
+                f"blocks of {BLOCK_ROWS} virtual rows "
+                f"({BLOCK_ROWS * ROW_BYTES // 1024} KiB), {WARP_ROWS} "
+                f"consecutive ones a warp, one 16-byte vector a thread a "
+                f"row (the script's step of "
+                f"{v.blk_rows} rows and nbuf {v.nbuf} do not shape it){same}")
     stage = stage_rows(v.blk_rows, v.nbuf)
     if v.run_rows <= stage:
         per = f"{stage // v.run_rows} runs a stage"
     else:
         per = f"a run over {v.run_rows // stage} stages"
-    body = ("eye(128) in bf16 on the tensor cores" if v.matmul
-            else "x2")
-    twins = [w.name.strip() for w in VARIANTS
-             if w != v and _launch(w) == _launch(v)]
-    same = f"; the same launch as {', '.join(twins)}" if twins else ""
-    return (f"runs of {v.run_rows * ROW_BYTES} B, ring of {v.nbuf} stages "
+    return (f"runs of {v.run_rows * ROW_BYTES} B, blocks of {v.nbuf} stages "
             f"of {stage} rows ({stage * ROW_BYTES // 1024} KiB; the script's "
-            f"step: {v.blk_rows} rows), {per}, {body}{same}")
+            f"step: {v.blk_rows} rows), each filled once by TMA, {per}, "
+            f"eye(128) in bf16 on the tensor cores{same}")
 
 
 def main(argv=None) -> int:

@@ -287,6 +287,32 @@ def test_cuda_factored_largest(row_bits, lane_bits, cuda):
     assert (a - b).abs().max().item() <= ATOL
 
 
+# chip_smoke.FACTORED_CASES at n = 20-22: the same factor sizes, lane bits
+# and order of row bits, the largest (kr = 9, kl = 7) included
+FACTORED_CHIP_CASES = [
+    (20, (), (6, 5, 4, 3)), (21, (19, 9), (6, 5)), (22, (21, 14), (6, 5)),
+    (22, (15, 9), (4, 2)), (20, (), (6, 3, 0)), (22, (14, 13), (5,)),
+    (22, (9, 15), (2, 4)),
+    (22, (21, 20, 19, 18, 11, 10, 9, 8, 7), (6, 5, 4, 3, 2, 1, 0)),
+]
+
+
+@pytest.mark.parametrize('n, row_bits, lane_bits', FACTORED_CHIP_CASES)
+def test_cuda_factored_chip_bit_sets(n, row_bits, lane_bits, cuda):
+    """Each launch of the kernel counted once: two for kr >= 7."""
+    rng = np.random.default_rng(n + len(row_bits))
+    Ur = _rand_u(len(row_bits), rng) if row_bits else np.ones((1, 1))
+    Ul = _rand_u(len(lane_bits), rng)
+    st = _rand_state(n, rng, cuda)
+    a, b = st.clone(), st.clone()
+    fk.reset_counts()
+    fk.apply_factored(a, Ur, row_bits, Ul, lane_bits)
+    fk.apply_factored_plain(b, Ur, row_bits, Ul, lane_bits)
+    torch.cuda.synchronize()
+    assert fk.counts()['factored_apply'] == 1
+    assert (a - b).abs().max().item() <= ATOL
+
+
 @pytest.mark.parametrize('n, bits', [(11, (10, 9, 8, 7)),
                                      (22, (21, 16, 9, 14)),
                                      (22, (7, 8, 20, 13))])
@@ -410,6 +436,24 @@ def test_cuda_gather_matches_plain(rows, run, blk, matmul, nbuf, cuda):
     torch.cuda.synchronize()
     assert gather.counts() == {'gather_scale': 1}
     assert torch.equal(got, gather.gather_scale_plain(x, matmul))
+
+
+@pytest.mark.parametrize('i', range(len(gather.VARIANTS)))
+def test_cuda_gather_variant_on_view(i, cuda):
+    """Every probe variant on 32 MiB that starts 3 rows into its array:
+    the view is doubled or rounded to bf16, the rows before it stay."""
+    v = gather.VARIANTS[i]
+    rows, offset = 2 ** 16, 3
+    x = torch.randn(rows + offset, 128,
+                    generator=torch.Generator().manual_seed(i)).to(cuda)
+    want = torch.cat([x[:offset], gather.gather_scale_plain(x[offset:],
+                                                            v.matmul)])
+    gather.reset_counts()
+    assert gather.run_variant(v, x[offset:]).data_ptr() == \
+        x[offset:].data_ptr()
+    torch.cuda.synchronize()
+    assert gather.counts() == {'gather_scale': 1}
+    assert torch.equal(x, want)
 
 
 @pytest.mark.parametrize('simplify, final, target, chunk', [

@@ -95,26 +95,35 @@ def test_run_source_is_src_of(run):
 
 
 def test_card_mapping_fits_shared_memory():
+    """Every variant's stages fit the ring's shared memory (the C entry
+    point checks it for all); only the matmul variant runs on stages, of
+    whole 128-row chunks, and ``describe`` names them."""
     for v in gather.VARIANTS:
         stage = gather.stage_rows(v.blk_rows, v.nbuf)
         assert v.nbuf * stage * gather.ROW_BYTES <= gather.RING_BYTES
         assert v.blk_rows % stage == 0
-        assert not v.matmul or stage % gather.MATMUL_CHUNK == 0
-        assert f'{stage} rows' in gather.describe(v)
+        if v.matmul:
+            assert stage % gather.MATMUL_CHUNK == 0
+            assert f'{v.nbuf} stages of {stage} rows' in gather.describe(v)
+        else:
+            assert f'blocks of {gather.BLOCK_ROWS} virtual rows' in \
+                gather.describe(v)
 
 
 def test_mapping_names_variants_that_launch_alike():
-    """Stages are capped at 128 rows, so the script's blk 2048 step runs
-    the launch of its blk 1024 one; ``describe`` says so of both and of no
+    """The doubling variants launch by run length alone, so the script's
+    blk 2048 step runs the launch of its blk 1024 one and the x4buf ring
+    that of its 4 KB one; ``describe`` says so of those four and of no
     other variant."""
     names = {v.name: v for v in gather.VARIANTS}
-    blk1024, blk2048 = (names['run 16KB  (32 sub) blk 1024'],
-                        names['run 16KB  blk 2048'])
-    assert 'the same launch as run 16KB  blk 2048' in gather.describe(blk1024)
-    assert 'the same launch as run 16KB  (32 sub) blk 1024' in \
-        gather.describe(blk2048)
+    pairs = [('run 16KB  (32 sub) blk 1024', 'run 16KB  blk 2048'),
+             ('run 4KB   (8 sub)  blk 1024', 'run 4KB   blk 1024 x4buf')]
+    for a, b in pairs:
+        assert f'the same launch as {b}' in gather.describe(names[a])
+        assert f'the same launch as {a}' in gather.describe(names[b])
+    twins = {names[n] for pair in pairs for n in pair}
     for v in gather.VARIANTS:
-        if v not in (blk1024, blk2048):
+        if v not in twins:
             assert 'the same launch' not in gather.describe(v)
 
 
