@@ -66,7 +66,10 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              may take at most 1.1x its unpaired one.  Then straight passes
              and ``simulate`` at n = 31 and 32.  Each kernel is then
              replayed at the most frequent gate size the main path gave it
-             and held against its plain version.
+             and held against its plain version.  Also the first
+             ``simulate`` once more with ``profile_dir``: the device
+             operations of its Chrome trace by name, and the share of its
+             seconds the card was busy (the rest is the host's).
   dm         ``dm.simulate`` of ``get_rqc(15, 60)`` with a
              ``LocalDepolarizingChannel`` on every qubit after each layer of
              15 gates: a 15-qubit density matrix, 30 qubits doubled, in
@@ -75,6 +78,31 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              seconds, launches and peak recorded); and the same
              construction at 12 qubits in complex64 against complex128 on
              the card (max|d| / max|amp| <= 3e-6).
+  trajectories  ``simulation.trajectories.sample_trajectories``: 64
+             trajectories of ``get_rqc(14, 112)`` with a
+             ``LocalDepolarizingChannel`` (p = 0.01) after each layer of 14
+             gates and an ``AmplitudeDampingChannel`` (p = 1, Kraus sites)
+             on 2 qubits, on the card and on the host with one seed: from
+             |+...+> max|d|/rms <= 1e-5 every sample, from |0...0> (peaked
+             samples) max|d| over max|amp| <= 3e-6; then 8 trajectories of
+             ``get_rqc(27, 216)`` built alike with damping on 4 qubits (8
+             GiB of batch) through ``apply_bits``: its launches counted
+             exactly, every sample's norm within 1e-4 of 1, sample-sites/s;
+  clifford   ``clifford.update_pauli_string`` of a one-qubit Z through
+             1920 random Clifford gates on 48 qubits with 26 T gates where
+             the evolved string has an X or Y: ``backend='torch'`` on the
+             card (float64 and float32) against ``backend='numpy'`` on the
+             host (the same strings above 1e-6; values within 1e-9, and
+             1e-5 in float32, of max|v|), the frontier past
+             ``max_breadth_first_branches`` (2^18) so the split runs; then
+             38 T gates on the card alone, timed (branches/s);
+  cli        ``python -m hybridq_tpu_torch.cli examples/circuit.qasm`` (23
+             qubits, the card's straight engine) in a subprocess, its
+             pickle against an in-process ``simulate`` of the file
+             (max|d|/rms <= 1e-6, ``apply_bits`` launched); ``main_dm`` on
+             a 16-qubit Clifford+T file written by ``to_qasm``, its JSON
+             against the numpy backend (1e-5 of max|v|).  Each of these
+             three phases prints the card, its seconds and device peak;
   tn         the tensor-network engine: ``simulate(get_rqc(26, 150),
              optimize='tn')`` with 10 open final qubits on the card
              against the matching amplitudes of complex128 ``'evolution'``
@@ -193,6 +221,14 @@ TN_TOL = 1e-4              # max|d|/rms, TN against complex128 evolution
 TN_SECONDS = 30.0          # timed slices of the d12 plan: about this long
 TN_PLANS = ('syc53_d12_s0_t26.pkl', 'syc53_d20_s0_t26.pkl')
 TN_PROFILE_SLICES = 4      # slices of the d12 plan under torch.profiler
+TRAJ_HOLD = (14, 64)       # trajectories: (qubits, samples), card vs host
+TRAJ_WIDE = (27, 8)        # trajectories on apply_bits: 8 GiB of batch
+TRAJ_LAYERS = 8            # layers of n gates, each then depolarized
+TRAJ_GAMMA = 0.3           # amplitude damping of the Kraus sites
+CLIFFORD_N, CLIFFORD_GATES = 48, 1920     # Clifford gates, then T ones
+CLIFFORD_T_HOLD = 26       # T gates: a frontier of 2^18-2^19 branches
+CLIFFORD_T_TIMED = 38      # T gates: about 2^22 branches explored
+CLI_DM_N, CLI_DM_GATES, CLI_DM_T = 16, 320, 12   # main_dm's circuit
 TN_TF32_TOL = 1e-6         # |change| / |amp| when the global TF32 flags
                            # are turned on (one TF32 pass gives ~1e-3)
 # Published peaks (NVIDIA data sheets, dense): bytes/s, fp32 FLOP/s outside
@@ -230,7 +266,7 @@ KERNEL_INFO = {
 
 
 PHASES = ('build', 'kernels', 'parity', 'paths', 'probes', 'main_path',
-          'dm', 'tn')
+          'dm', 'trajectories', 'clifford', 'cli', 'tn')
 
 
 class PhaseError(RuntimeError):
@@ -1237,6 +1273,10 @@ def phase_main_path(out, name):
     check(d_sim <= 1e-6, f"main_path: 'evolution' and 'evolution-fused' "
           f"disagree ({d_sim:.3g})")
     torch.cuda.empty_cache()
+    # the first call again, under torch.profiler through profile_dir
+    emit({'phase': 'main_path', 'part': 'profile', 'n': n,
+          **profiled_simulate(gates, n), 'card': card}, out)
+    torch.cuda.empty_cache()
 
     # (b) bench-style passes through FusedEvolver, never flushing, and
     # (c) through IndexedEvolver, in one run
@@ -1436,6 +1476,332 @@ def phase_dm(out):
           'card': card}, out)
     check(d / amax <= PARITY_TOL, f"dm: complex64 against complex128 "
           f"{d / amax:.3g} > {PARITY_TOL}")
+
+
+def trace_breakdown(trace_dir, wall_s):
+    """The device's side of one Chrome trace that ``simulate(...,
+    profile_dir=)`` wrote into ``trace_dir``: device operations (kernels,
+    copies, sets) by name, the busy share (the union of their intervals
+    over the span of the call in the trace, which leaves out the trace's
+    export that ``wall_s``, the call's seconds, includes), the host share
+    (the rest)
+    and the costliest host operators (inclusive times, so nested ones
+    count in their callers too)."""
+    files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    check(len(files) == 1, f"main_path: profile_dir holds {files}")
+    with open(files[0]) as f:
+        events = json.load(f)['traceEvents']
+    dev = [e for e in events if e.get('ph') == 'X' and e.get('cat') in
+           ('kernel', 'gpu_memcpy', 'gpu_memset')]
+    timed = [e for e in events if e.get('ph') == 'X']
+    (span,) = [e['dur'] / 1e6 for e in timed if e['name'] == 'simulate'
+               and e.get('cat') == 'user_annotation']
+    spans = sorted((e['ts'], e['ts'] + e['dur']) for e in dev)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    def top(evs, label):
+        by_name = {}
+        for e in evs:
+            key = label(e)
+            n, ms = by_name.get(key, (0, 0.0))
+            by_name[key] = (n + 1, ms + e['dur'] / 1e3)
+        return [{'op': k, 'count': n, 'ms': ms} for k, (n, ms) in sorted(
+            by_name.items(), key=lambda kv: -kv[1][1])[:6]]
+    return {'trace_bytes': os.path.getsize(files[0]),
+            'device_ops': len(dev), 'wall_s': wall_s, 'trace_span_s': span,
+            'device_busy_s': busy / 1e6,
+            'device_busy_share': busy / 1e6 / span,
+            'host_share': 1 - busy / 1e6 / span,
+            'top_device_ops': top(dev, lambda e: f"{e['cat']}: "
+                                  f"{e['name'][:70]}"),
+            'top_host_ops': top([e for e in timed
+                                 if e.get('cat') == 'cpu_op'],
+                                lambda e: e['name'][:70])}
+
+
+def profiled_simulate(gates, n):
+    """One ``simulate`` at ``n`` with ``profile_dir``: its seconds and the
+    breakdown of the trace it wrote (``trace_breakdown``)."""
+    import tempfile
+
+    import torch
+    from hybridq_tpu_torch import Gate
+    from hybridq_tpu_torch.convert import circuit_from_matrices
+    from hybridq_tpu_torch.simulation import simulate
+
+    circuit = circuit_from_matrices(gates) + \
+        [Gate('I', qubits=[q]) for q in range(n)]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, 'trace')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psi = simulate(circuit, initial_state='0' * n,
+                       remove_id_gates=False, profile_dir=d,
+                       max_largest_intermediate=2 ** n)
+        dt = time.perf_counter() - t0
+        norm = host_norm(psi.reshape(-1))
+        del psi
+        check(abs(norm - 1) <= NORM_TOL, f"main_path: profiled simulate "
+              f"norm {norm}")
+        return trace_breakdown(d, dt)
+
+
+def noisy_trajectory_circuit(n, depth, damped):
+    """``noisy_rqc(n, depth)`` (a ``LocalDepolarizingChannel`` after each
+    layer of ``n`` gates) with an ``AmplitudeDampingChannel`` (p = 1: a
+    Kraus site each) on the qubits ``damped``, as
+    ``tests/test_dm_noise.py``'s general-Kraus case adds it."""
+    from hybridq_tpu_torch import Circuit
+    from hybridq_tpu_torch.noise import AmplitudeDampingChannel
+
+    return Circuit(noisy_rqc(n, depth) + list(AmplitudeDampingChannel(
+        list(damped), gamma=TRAJ_GAMMA, p=1)))
+
+
+def trajectory_launches(circuit, n_samples):
+    """``apply_bits`` launches of the kernel route: one a gate, sample and
+    Kraus candidate, plus the chosen Kraus operator."""
+    from hybridq_tpu_torch.gate import FunctionalGate
+
+    kraus = [g for g in circuit if isinstance(g, FunctionalGate)]
+    return n_samples * (len(circuit) - len(kraus) +
+                        sum(len(g.LMatrices) + 1 for g in kraus))
+
+
+def phase_trajectories(out):
+    """See the module docstring."""
+    import torch
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+    from hybridq_tpu_torch.simulation import trajectories
+
+    card = card_power()
+    # (a) the card against the host, sample for sample: from |+...+>
+    # at max|d|/rms, and from |0...0>, whose samples are peaked (max|amp|
+    # up to 40x the rms), at max|d| over max|amp| (f32 rounding scales
+    # with the largest amplitude; see the parity phase)
+    n, S = TRAJ_HOLD
+    c = noisy_trajectory_circuit(n, TRAJ_LAYERS * n, range(2))
+    for start, scale, tol in (('+', 'rms', TOL), ('0', 'max_amp',
+                                                  PARITY_TOL)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = trajectories.sample_trajectories(c, S, initial_state=start,
+                                               seed=SEED)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        want = trajectories.sample_trajectories(c, S, initial_state=start,
+                                                seed=SEED, device='cpu')
+        check(got.shape == (S, 2 ** n), f"trajectories: shape {got.shape}")
+        rms = np.sqrt((np.abs(want) ** 2).mean(axis=1))
+        amax = np.abs(want).max(axis=1)
+        d = np.abs(got - want).max(axis=1)
+        err = float((d / (rms if scale == 'rms' else amax)).max())
+        emit({'phase': 'trajectories', 'part': 'hold', 'n': n,
+              'samples': S, 'sites': len(c), 'initial_state': start,
+              'route': trajectories._route(torch.device('cuda'),
+                                           np.dtype('complex64'), n),
+              'seconds': dt, 'peak_gib': peak / 2 ** 30,
+              f'max_err_over_{scale}': err,
+              'max_rel_err': float((d / rms).max()),
+              'max_amp_over_rms': float((amax / rms).max()),
+              'card': card}, out)
+        check(err <= tol, f"trajectories: card against host from "
+              f"'{start}', max|d| over {scale} {err:.3g} > {tol}")
+        del got, want
+
+    # (b) full width through apply_bits
+    n, S = TRAJ_WIDE
+    c = noisy_trajectory_circuit(n, TRAJ_LAYERS * n, range(4))
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_counts()
+    t0 = time.perf_counter()
+    states = trajectories.sample_trajectories(c, S, seed=SEED)
+    dt = time.perf_counter() - t0
+    launches = fk.counts()
+    peak = torch.cuda.max_memory_allocated()
+    norms = [host_norm(s) for s in states]
+    del states
+    want = trajectory_launches(c, S)
+    emit({'phase': 'trajectories', 'part': 'wide', 'n': n, 'samples': S,
+          'sites': len(c), 'seconds': dt, 'launches': launches,
+          'expected_apply_bits': want,
+          'sample_sites_per_s': S * len(c) / dt,
+          'batch_gib': S * 2 ** (n + 3) / 2 ** 30,
+          'peak_gib': peak / 2 ** 30, 'norms': norms, 'card': card}, out)
+    check(launches['apply_bits'] == want, f"trajectories: apply_bits "
+          f"launched {launches['apply_bits']} times, not {want}")
+    check_engine_launches('trajectories', 'indexed', launches)
+    check(all(abs(x - 1) <= NORM_TOL for x in norms),
+          f"trajectories: sample norms {norms}")
+
+
+def clifford_t_circuit(n, n_gates, n_t, seed):
+    """``get_rqc(n, n_gates, use_clifford_only=True)`` with ``n_t`` T
+    gates inserted where the Heisenberg-evolved ``Z`` on qubit 0 (the
+    Clifford circuit's own, gate by gate from the end) has an X or Y, so
+    that each T lies in the light cone and can branch."""
+    from hybridq_tpu_torch import Circuit, Gate
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.simulation import clifford
+
+    np.random.seed(seed)
+    gates = list(get_rqc(n, n_gates, indexes=list(range(n)),
+                         use_clifford_only=True, randomize_power=False))
+    code = np.zeros(n, dtype=np.int64)
+    code[0] = 3
+    sites = []            # (list position, qubit): a T there sees X or Y
+    for i in range(len(gates) - 1, -1, -1):
+        sites += [(i + 1, int(q)) for q in np.flatnonzero(
+            (code == 1) | (code == 2))]
+        g = gates[i]
+        rows, k = clifford._pauli_rows(np.asarray(g.matrix(), complex),
+                                       1e-8)
+        s = 0
+        for q in g.qubits:
+            s = (s << 2) | int(code[q])
+        (t,), _ = rows[s]                     # a Clifford: one string
+        for j, q in enumerate(g.qubits):
+            code[q] = (int(t) >> (2 * (k - 1 - j))) & 3
+    pick = np.random.default_rng(seed).choice(len(sites), n_t,
+                                              replace=False)
+    for i in sorted(pick, key=lambda j: -sites[j][0]):
+        gates.insert(sites[i][0], Gate('T', [sites[i][1]]))
+    return Circuit(gates)
+
+
+def same_strings(got, want, tol, where):
+    """Two Pauli-string dicts agree by key: the same strings above 1e-6,
+    every value within ``tol`` of max|v|; returns the largest difference
+    over max|v|."""
+    keys = {k for k, v in got.items() if abs(v) > 1e-6}
+    check(keys == {k for k, v in want.items() if abs(v) > 1e-6},
+          f"{where}: the strings differ")
+    scale = max(abs(v) for v in want.values())
+    d = max(abs(got.get(k, 0.0) - want.get(k, 0.0))
+            for k in set(got) | set(want)) / scale
+    check(d <= tol, f"{where}: {d:.3g} of max|v| > {tol}")
+    return d
+
+
+def run_clifford(c, pauli, **kw):
+    """One ``update_pauli_string`` with its info, seconds and device
+    peak."""
+    import torch
+    from hybridq_tpu_torch.simulation import clifford
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    db, info = clifford.update_pauli_string(c, pauli, return_info=True,
+                                            **kw)
+    torch.cuda.synchronize()
+    return db, {**info, 'seconds': time.perf_counter() - t0,
+                'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_clifford(out):
+    """See the module docstring."""
+    card = card_power()
+    n, n_gates = CLIFFORD_N, CLIFFORD_GATES
+    pauli = 'Z' + 'I' * (n - 1)
+    c = clifford_t_circuit(n, n_gates, CLIFFORD_T_HOLD, SEED)
+    want, ref = run_clifford(c, pauli, backend='numpy',
+                             float_type='float64')
+    parts = {'numpy_float64': ref}
+    for ft, tol in (('float64', 1e-9), ('float32', 1e-5)):
+        got, info = run_clifford(c, pauli, float_type=ft)
+        info['of_max_v'] = same_strings(got, want, tol,
+                                        f"clifford ({ft})")
+        parts[f'torch_{ft}'] = info
+        del got
+    emit({'phase': 'clifford', 'part': 'hold', 'n': n, 'gates': len(c),
+          'T': CLIFFORD_T_HOLD, **parts, 'card': card}, out)
+    check(ref['largest_batch'] > 2 ** 18, "clifford: the frontier stayed "
+          f"below max_breadth_first_branches ({ref['largest_batch']})")
+
+    c = clifford_t_circuit(n, n_gates, CLIFFORD_T_TIMED, SEED)
+    db, info = run_clifford(c, pauli)
+    emit({'phase': 'clifford', 'part': 'timed', 'n': n, 'gates': len(c),
+          'T': CLIFFORD_T_TIMED, **info,
+          'branches_per_s': info['n_explored_branches'] / info['seconds'],
+          'card': card}, out)
+    check(len(db) > 0, "clifford: empty expansion")
+
+
+def phase_cli(out):
+    """See the module docstring."""
+    import pickle
+    import tempfile
+
+    import torch
+    from hybridq_tpu_torch import cli
+    from hybridq_tpu_torch.extras.io.qasm import from_qasm, to_qasm
+    from hybridq_tpu_torch.simulation import clifford, simulate
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+
+    card = card_power()
+    here = os.path.dirname(os.path.abspath(__file__))
+    qasm = os.path.join(here, 'examples', 'circuit.qasm')
+    with tempfile.TemporaryDirectory() as tmp:
+        pk = os.path.join(tmp, 'out.pkl')
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, '-m', 'hybridq_tpu_torch.cli',
+                            qasm, pk], cwd=here, capture_output=True,
+                           text=True, timeout=600)
+        dt_cli = time.perf_counter() - t0
+        check(r.returncode == 0, f"cli: main exited {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        with open(pk, 'rb') as f:
+            results = pickle.load(f)
+        with open(qasm) as f:
+            circuit = from_qasm(f.read())
+        n = len(circuit.all_qubits)
+        fk.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        want, info = simulate(circuit, initial_state='0', return_info=True)
+        launches = fk.counts()
+        peak = torch.cuda.max_memory_allocated()
+        got = results['simulate']
+        check(isinstance(got, np.ndarray) and got.shape == want.shape,
+              f"cli: the pickle holds {type(got)}")
+        rel = float(np.abs(got - want).max() /
+                    np.sqrt(np.mean(np.abs(want) ** 2)))
+        emit({'phase': 'cli', 'part': 'main', 'qubits': n,
+              'gates': len(circuit), 'engine': info['engine'],
+              'cli_seconds': dt_cli, 'runtime_s': results['runtime (s)'],
+              'launches': launches, 'peak_gib': peak / 2 ** 30,
+              'max_rel_err': rel, 'card': card}, out)
+        check(info['engine'] == 'indexed', f"cli: {info['engine']} engine")
+        check_engine_launches('cli', info['engine'], launches)
+        check(rel <= CONTRACT, f"cli: main against simulate {rel:.3g}")
+
+        c = clifford_t_circuit(CLI_DM_N, CLI_DM_GATES, CLI_DM_T, SEED)
+        path = os.path.join(tmp, 'clifford_t.qasm')
+        with open(path, 'w') as f:
+            f.write(to_qasm(c))
+        js = os.path.join(tmp, 'out.json')
+        pauli = 'Z' + 'I' * (CLI_DM_N - 1)
+        t0 = time.perf_counter()
+        cli.main_dm([path, js, '--initial-pauli-string', pauli,
+                     '--return-info'])
+        dt_dm = time.perf_counter() - t0
+        with open(js) as f:
+            payload = json.load(f)
+        got = {k: v[0] for k, v in payload['pauli_strings'].items()}
+        want = clifford.update_pauli_string(from_qasm(to_qasm(c)), pauli,
+                                            backend='numpy')
+        d = same_strings(got, want, 1e-5, 'cli main_dm')
+        emit({'phase': 'cli', 'part': 'main_dm', 'qubits': CLI_DM_N,
+              'gates': len(c), 'seconds': dt_dm, 'info': payload['info'],
+              'of_max_v': d, 'card': card}, out)
 
 
 def tn_costs(sc, name):
@@ -1736,6 +2102,9 @@ def main(argv=None):
             'probes': lambda: phase_probes(out, name),
             'main_path': lambda: phase_main_path(out, name),
             'dm': lambda: phase_dm(out),
+            'trajectories': lambda: phase_trajectories(out),
+            'clifford': lambda: phase_clifford(out),
+            'cli': lambda: phase_cli(out),
             'tn': lambda: phase_tn(out, name)}
     try:
         summary = {}

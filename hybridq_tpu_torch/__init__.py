@@ -15,6 +15,11 @@ Engines:
   * tensor networks         — `simulate(..., optimize='tn')`: host path
     search and slicing (`simulation.tn`, the C++ of
     `hybridq_tpu_torch.native`), contraction on the card
+  * noise trajectories      — `simulation.trajectories`, a batch of
+    samples on `apply_bits`
+  * Clifford expansion      — `simulation.clifford`, the branch frontier
+    on the card
+  * command lines           — `hybridq_tpu_torch.cli` (`main`, `main_dm`)
 
 Kernels off the engine's path: `simulation.apply_factored`,
 `simulation.apply_gate_rows` and the probe `probes.apply_fused_k4`.

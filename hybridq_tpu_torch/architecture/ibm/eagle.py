@@ -1,0 +1,36 @@
+"""IBM Eagle (127-qubit) layout
+(data parity with ``hybridq/architecture/ibm/eagle.py``)."""
+
+from hybridq_tpu_torch.architecture.utils import get_layout_from_drawing
+
+__all__ = ['drawing', 'layout', 'couplings']
+
+drawing = r"""
+X-X-X-X-X-X-X-X-X-X-X-X-X-X
+|       |       |       |
+X       X       X       X
+|       |       |       |
+X-X-X-X-X-X-X-X-X-X-X-X-X-X-X
+    |       |       |       |
+    X       X       X       X
+    |       |       |       |
+X-X-X-X-X-X-X-X-X-X-X-X-X-X-X
+|       |       |       |
+X       X       X       X
+|       |       |       |
+X-X-X-X-X-X-X-X-X-X-X-X-X-X-X
+    |       |       |       |
+    X       X       X       X
+    |       |       |       |
+X-X-X-X-X-X-X-X-X-X-X-X-X-X-X
+|       |       |       |
+X       X       X       X
+|       |       |       |
+X-X-X-X-X-X-X-X-X-X-X-X-X-X-X
+    |       |       |       |
+    X       X       X       X
+    |       |       |       |
+  X-X-X-X-X-X-X-X-X-X-X-X-X-X
+"""
+
+layout, couplings = get_layout_from_drawing(drawing)

@@ -1,0 +1,18 @@
+"""Rigetti Aspen-7 layout
+(data parity with ``hybridq/architecture/rigetti/aspen_7.py``)."""
+
+from hybridq_tpu_torch.architecture.utils import get_layout_from_drawing
+
+__all__ = ['drawing', 'layout', 'couplings']
+
+drawing = r"""
+          X-X     X-X     X-X
+         /   \   /   \       \
+        X     X-X     X       X
+        |     |       |       |
+X     X-X     X       X-X     X
+ \   /       /       /   \   /
+  X-X       X     X-X     X-X
+"""
+
+layout, couplings = get_layout_from_drawing(drawing)

@@ -66,16 +66,28 @@ def simulate(circuit, initial_state, final_state=None,
     ``initial_state`` may be a token string (single char broadcast; doubled
     automatically), a pure ``Circuit`` (its matrix U is used as rho,
     transposed input/output, as in the reference), or a dense array of
-    ``nl + nr`` qubit axes.  ``optimize='clifford'`` is not ported yet.
+    ``nl + nr`` qubit axes.  ``optimize='clifford'`` delegates to the
+    Pauli-string engine (``simulation.clifford.update_pauli_string``, on
+    the card unless ``device='cpu'`` or ``backend='numpy'``), with
+    ``initial_state`` the Pauli string.
     """
+    circuit = list(circuit)
+
     if optimize == 'clifford':
-        raise NotImplementedError(
-            "optimize='clifford' is not ported to hybridq_tpu_torch yet: "
-            "see ROADMAP.md Queue 1, item 12 (clifford.py)")
+        from hybridq_tpu_torch.simulation import clifford
+
+        if any(not isinstance(g, BaseGate) for g in circuit):
+            raise NotImplementedError(
+                "'optimize=clifford' only supports 'BaseGate's")
+        if final_state is not None:
+            raise ValueError(
+                "'final_state' cannot be provided if optimize='clifford'.")
+        return clifford.update_pauli_string(
+            PureCircuit(circuit), initial_state, verbose=verbose, **kwargs)
 
     from hybridq_tpu_torch.simulation import simulate as pure_simulate
 
-    circuit = SuperCircuit(list(circuit))
+    circuit = SuperCircuit(circuit)
     l_qubits, r_qubits = circuit.all_qubits
     nl, nr = len(l_qubits), len(r_qubits)
     doubled = _convert(circuit)

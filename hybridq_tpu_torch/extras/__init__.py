@@ -1,5 +1,6 @@
-"""Extras: random circuit generators."""
+"""Extras: random circuits, OTOC workloads, IO, debug gates."""
 
-from hybridq_tpu_torch.extras import random
+from hybridq_tpu_torch.extras import random, otoc, io
+from hybridq_tpu_torch.extras.gate import MessageGate
 
-__all__ = ['random']
+__all__ = ['random', 'otoc', 'io', 'MessageGate']

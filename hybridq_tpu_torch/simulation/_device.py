@@ -3,10 +3,12 @@
 from __future__ import annotations
 
 import contextlib
+import os
+import time
 
 import torch
 
-__all__ = ['resolve_device', 'full_precision_matmul']
+__all__ = ['resolve_device', 'full_precision_matmul', 'profiled']
 
 
 def resolve_device(device, what: str = 'simulate()') -> torch.device:
@@ -31,3 +33,22 @@ def full_precision_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def profiled(directory, device):
+    """Run the block under ``torch.profiler`` (host activity, and the
+    card's when ``device`` is a CUDA device) and write its Chrome trace
+    into ``directory``, which is created if needed; the block is one
+    span named ``simulate`` in the trace."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        with record_function('simulate'):
+            yield
+    prof.export_chrome_trace(os.path.join(
+        str(directory), f'simulate-{os.getpid()}-{time.time_ns()}.json'))

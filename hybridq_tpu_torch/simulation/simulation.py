@@ -120,7 +120,10 @@ def simulate(circuit, initial_state=None, final_state=None,
     contraction (see the module docstring).  Evolution returns a numpy
     array by default, or the torch tensor on ``device`` with
     ``return_numpy_array=False``; the TN engine returns a numpy array,
-    or ``(net, (info, tree))`` with ``tensor_only=True``."""
+    or ``(net, (info, tree))`` with ``tensor_only=True``.  With
+    ``profile_dir=d`` the whole call runs under ``torch.profiler`` (the
+    card's activity too on a CUDA device) and writes a Chrome trace into
+    ``d``, as the JAX package writes a ``jax.profiler`` trace there."""
     kwargs.setdefault('allow_sampling', False)
     kwargs.setdefault('sampling_seed', None)
 
@@ -133,6 +136,19 @@ def simulate(circuit, initial_state=None, final_state=None,
                          f"got {complex_type}")
     if evolution or backend != 'numpy':
         device = resolve_device(device)
+
+    profile_dir = kwargs.pop('profile_dir', None)
+    if profile_dir:
+        from hybridq_tpu_torch.simulation._device import profiled
+
+        with profiled(profile_dir, device):
+            return simulate(circuit, initial_state=initial_state,
+                            final_state=final_state, optimize=optimize,
+                            backend=backend, complex_type=complex_type,
+                            tensor_only=tensor_only, simplify=simplify,
+                            remove_id_gates=remove_id_gates,
+                            use_mpi=use_mpi, atol=atol, verbose=verbose,
+                            device=device, **kwargs)
 
     from hybridq_tpu_torch.simulation.tn.network import TensorNetwork
     if not isinstance(circuit, TensorNetwork):

@@ -500,3 +500,82 @@ def test_cuda_tn_executor_matches_cpu(simplify, final, target, chunk,
             assert got.dtype == np.dtype(ctype)
             assert np.abs(got - want).max() <= tol * np.abs(want).max()
         assert torch.backends.cuda.matmul.allow_tf32
+
+
+def _noisy_rqc(n, depth, damped, seed):
+    """``get_rqc(n, depth)`` with a ``LocalDepolarizingChannel`` (p =
+    0.01) after each layer of ``n`` gates, then an
+    ``AmplitudeDampingChannel`` (p = 1: Kraus sites) on ``damped``."""
+    from hybridq_tpu_torch import Circuit
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.noise import (AmplitudeDampingChannel,
+                                         LocalDepolarizingChannel)
+
+    np.random.seed(seed)
+    out = []
+    for i, g in enumerate(get_rqc(n, depth, indexes=list(range(n)))):
+        out.append(g)
+        if (i + 1) % n == 0:
+            out += list(LocalDepolarizingChannel(list(range(n)), 0.01))
+    out += list(AmplitudeDampingChannel(list(damped), gamma=0.3, p=1))
+    return Circuit(out)
+
+
+@pytest.mark.parametrize('n, route', [(8, 'plain'), (20, 'bits')])
+def test_cuda_trajectories_match_cpu(n, route, cuda):
+    """``sample_trajectories`` on the card (below 20 qubits the batched
+    ``matmul`` on CUDA tensors, from 20 one ``apply_bits`` launch a gate
+    and sample) against the same seed on the host: max|d|/rms <= 1e-5 a
+    sample from |+...+> (from |0...0> the samples are peaked, and f32
+    rounding alone reads up to 8e-5 of the rms there), and every launch
+    counted."""
+    from hybridq_tpu_torch.gate import FunctionalGate
+    from hybridq_tpu_torch.simulation import trajectories
+
+    c = _noisy_rqc(n, 2 * n, (0, n - 1), 1)
+    S = 4
+    assert trajectories._route(cuda, np.dtype('complex64'), n) == route
+    fk.reset_counts()
+    got = trajectories.sample_trajectories(c, S, initial_state='+', seed=2,
+                                           device=cuda)
+    launches = fk.counts()
+    want = trajectories.sample_trajectories(c, S, initial_state='+', seed=2,
+                                            device='cpu')
+    n_kraus = sum(isinstance(g, FunctionalGate) for g in c)
+    assert launches['apply_bits'] == (
+        S * (len(c) + 2 * n_kraus) if route == 'bits' else 0)
+    assert launches['apply_bits_plain'] == 0
+    rms = np.sqrt((np.abs(want) ** 2).mean(axis=1))
+    assert (np.abs(got - want).max(axis=1) / rms).max() <= ATOL
+
+
+@pytest.mark.parametrize('float_type, tol', [('float64', 1e-9),
+                                             ('float32', 1e-5)])
+def test_cuda_clifford_matches_numpy(float_type, tol, cuda):
+    """``update_pauli_string(backend='torch')`` on the card against the
+    numpy backend on a Clifford+T circuit, with a batch cap that makes
+    the frontier split: the same strings above 1e-6, values within
+    ``tol`` of max|v|."""
+    from hybridq_tpu_torch import Circuit, Gate
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.simulation import clifford
+
+    n = 8
+    np.random.seed(0)
+    gates = list(get_rqc(n, 200, indexes=list(range(n)),
+                         use_clifford_only=True, randomize_power=False))
+    for p in np.sort(np.random.choice(len(gates), 16, replace=False))[::-1]:
+        gates.insert(int(p), Gate('T', [int(np.random.randint(n))]))
+    c = Circuit(gates)
+    kw = dict(float_type=float_type, max_breadth_first_branches=32,
+              return_info=True)
+    got, info = clifford.update_pauli_string(c, 'Z' + 'I' * (n - 1),
+                                             device=cuda, **kw)
+    want, _ = clifford.update_pauli_string(c, 'Z' + 'I' * (n - 1),
+                                           backend='numpy', **kw)
+    assert info['largest_batch'] > 32
+    assert {k for k, v in got.items() if abs(v) > 1e-6} == \
+        {k for k, v in want.items() if abs(v) > 1e-6}
+    scale = max(abs(v) for v in want.values())
+    for k in set(got) | set(want):
+        assert abs(got.get(k, 0) - want.get(k, 0)) <= tol * scale

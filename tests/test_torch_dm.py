@@ -249,11 +249,14 @@ def test_dm_complex64_straight_engine_matches_jax(seed):
 
 
 def test_dm_raises_for_unported_engines(monkeypatch):
-    """Clifford still raises, naming its item; the TN engine, once named
-    here as not ported, now gives H|0><0|H."""
+    """The engines once named here as not ported now run: Clifford
+    (``tests/test_torch_clifford.py`` holds it against JAX) gives
+    H^dagger Z H = X, the TN engine H|0><0|H; without a card both default
+    engines raise, naming ``device='cpu'``."""
     c = [T.Gate('H', [0])]
-    with pytest.raises(NotImplementedError, match='item 12'):
-        tdm.simulate(c, initial_state='0', optimize='clifford')
+    db = tdm.simulate(c, initial_state='Z', optimize='clifford',
+                      device='cpu')
+    assert set(db) == {'X'} and abs(db['X'] - 1) < 1e-6
     rho = tdm.simulate(c, initial_state='0', final_state='.',
                        optimize='tn', device='cpu', max_time=1)
     np.testing.assert_allclose(np.reshape(rho, (2, 2)),
@@ -261,3 +264,5 @@ def test_dm_raises_for_unported_engines(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tdm.simulate(c, initial_state='0')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdm.simulate(c, initial_state='Z', optimize='clifford')

@@ -58,7 +58,12 @@ def test_import_leaves_jax_unloaded():
             "hybridq_tpu_torch.probes.fused_k4, "
             "hybridq_tpu_torch.probes.bw, hybridq_tpu_torch.probes.gather, "
             "hybridq_tpu_torch.simulation._build, "
-            "hybridq_tpu_torch.simulation.tn, hybridq_tpu_torch.native; "
+            "hybridq_tpu_torch.simulation.tn, hybridq_tpu_torch.native, "
+            "hybridq_tpu_torch.simulation.trajectories, "
+            "hybridq_tpu_torch.simulation.clifford, hybridq_tpu_torch.cli, "
+            "hybridq_tpu_torch.extras.io, hybridq_tpu_torch.extras.otoc, "
+            "hybridq_tpu_torch.extras.gate, hybridq_tpu_torch.architecture, "
+            "hybridq_tpu_torch.architecture.plot; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -211,22 +216,58 @@ def test_tn_and_einsum_need_a_card_unless_told(optimize, monkeypatch):
         np.testing.assert_allclose(psi.reshape(-1), bell, atol=1e-6)
 
 
-@pytest.mark.parametrize('entry', ['state_from_reference', 'IndexedEvolver'])
-def test_entry_points_need_a_card_unless_told(entry, monkeypatch):
-    """``state_from_reference`` and ``IndexedEvolver`` default to the card
-    like ``simulate``: without one they raise, naming ``device='cpu'``."""
+ENTRY_POINTS = ['state_from_reference', 'IndexedEvolver',
+                'sample_trajectories', 'update_pauli_string', 'cli.main']
+
+
+@pytest.mark.parametrize('entry', ENTRY_POINTS)
+def test_entry_points_need_a_card_unless_told(entry, monkeypatch, tmp_path):
+    """``state_from_reference``, ``IndexedEvolver``,
+    ``sample_trajectories``, ``clifford.update_pauli_string`` and the
+    command line default to the card like ``simulate``: without one they
+    raise, naming ``device='cpu'``; told the CPU (``--device cpu``), they
+    run there."""
+    from hybridq_tpu_torch import Circuit, Gate
+    from hybridq_tpu_torch import cli
     from hybridq_tpu_torch.convert import state_from_reference
+    from hybridq_tpu_torch.extras.io.qasm import to_qasm
+    from hybridq_tpu_torch.simulation import clifford, trajectories
     from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
 
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     pair = np.zeros((2, 2 ** 3), dtype=np.float32)
     pair[0, 0] = 1
+    bell = Circuit([Gate('H', qubits=[0]), Gate('CX', qubits=[0, 1])])
+    qasm = tmp_path / 'bell.qasm'
+    qasm.write_text(to_qasm(bell))
+    out = tmp_path / 'out.pk'
+
+    def run_cli(**kw):
+        import pickle
+
+        cli.main([str(qasm), str(out)] +
+                 (['--device', kw['device']] if kw else []))
+        with open(out, 'rb') as f:
+            return pickle.load(f)['simulate']
     make = {'state_from_reference': lambda **kw: state_from_reference(
                 pair, **kw)[0],
             'IndexedEvolver': lambda **kw: IndexedEvolver(
-                3, **kw).prepare_state('000')}[entry]
+                3, **kw).prepare_state('000'),
+            'sample_trajectories': lambda **kw:
+                trajectories.sample_trajectories(bell, 2, **kw),
+            'update_pauli_string': lambda **kw:
+                clifford.update_pauli_string(bell, 'ZI', **kw),
+            'cli.main': run_cli}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
-    state = make(device='cpu')
-    assert state.device.type == 'cpu'
-    np.testing.assert_array_equal(state.numpy(), pair.reshape(-1))
+    got = make(device='cpu')
+    if entry in ('state_from_reference', 'IndexedEvolver'):
+        assert got.device.type == 'cpu'
+        np.testing.assert_array_equal(got.numpy(), pair.reshape(-1))
+    elif entry == 'update_pauli_string':
+        assert set(got) == {'XI'}          # H^dagger CX Z0 CX H = X0
+    else:
+        bell_state = np.array([1, 0, 0, 1]) / np.sqrt(2)
+        assert isinstance(got, np.ndarray)
+        for psi in np.reshape(got, (-1, 4)):
+            np.testing.assert_allclose(psi, bell_state, atol=1e-6)

@@ -192,3 +192,27 @@ def test_state_from_reference_round_trip(seed):
 
     c = circuit_from_matrices(gates)
     assert [tuple(g.qubits) for g in c] == [qs for _, qs in gates]
+
+
+@pytest.mark.parametrize('optimize, kw', [
+    ('evolution', {}),
+    ('tn', {'final_state': '.', 'max_time': 1}),
+])
+def test_profile_dir_writes_a_trace(optimize, kw, tmp_path, seed):
+    """``simulate(..., profile_dir=d)`` runs the call under
+    ``torch.profiler`` and writes a Chrome trace into ``d`` (created),
+    as JAX writes its ``jax.profiler`` trace there; the amplitudes are
+    those of the call without it (the TN engine plans anew each call, so
+    its sums may run in another order: 1e-5)."""
+    import json
+
+    _, ct = _both_rqc(6, 30, seed)
+    want = t_simulate(ct, initial_state='0', optimize=optimize,
+                      device='cpu', **kw)
+    d = tmp_path / 'trace' / optimize
+    got = t_simulate(ct, initial_state='0', optimize=optimize,
+                     device='cpu', profile_dir=str(d), **kw)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    (trace,) = d.iterdir()
+    events = json.loads(trace.read_text())['traceEvents']
+    assert any(e.get('ph') == 'X' for e in events)
