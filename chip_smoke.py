@@ -103,6 +103,30 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              a 16-qubit Clifford+T file written by ``to_qasm``, its JSON
              against the numpy backend (1e-5 of max|v|).  Each of these
              three phases prints the card, its seconds and device peak;
+  sharded    the sharded engines on the one card, shards in one process:
+             (a) the ``main_path`` workload at n = 30 through
+             ``ShardedIndexedEvolver(30, devices=['cuda:0'] * 4)``, then
+             ``* 8``: ``apply_bits`` launches must equal shards x blocks
+             and the exchanges the schedule's own count
+             (``_schedule``); every shard is held against the straight
+             engine's container on the same gates, each qubit at the
+             position the sharded run left it in (max|d|/rms <= 1e-5);
+             warm gates/s of a sharded pass beside the straight pass,
+             ms of one exchange beside its bytes bound (half of every
+             shard read and written once), the exchanges' share of a
+             pass and the device peak over the shards' bytes; (b) on 4
+             shards, ``probabilities`` of 3 qubits, ``expectation_value``
+             of a 2-qubit Pauli product and ``project`` then ``norm``
+             against the same quantities of the straight container
+             (1e-5); (c) ``simulate(optimize='evolution-sharded',
+             devices=['cuda:0'] * 4)`` at n = 24 against ``'evolution'``
+             (the parity tolerances); (d) a process group of one under
+             NCCL (``parallel.initialize`` on a ``file://`` store): the
+             same call, and ``update_pauli_string(use_mpi=True)`` against
+             the unsplit expansion (exchanges across ranks are held only
+             on the CPU under gloo); (e) ``contract(devices=['cuda:0'] *
+             2)`` on ``tn``'s 26-qubit case, sliced, against one device
+             (max|d|/rms <= 1e-5).  Runs before ``tn``.
   tn         the tensor-network engine: ``simulate(get_rqc(26, 150),
              optimize='tn')`` with 10 open final qubits on the card
              against the matching amplitudes of complex128 ``'evolution'``
@@ -229,6 +253,7 @@ CLIFFORD_N, CLIFFORD_GATES = 48, 1920     # Clifford gates, then T ones
 CLIFFORD_T_HOLD = 26       # T gates: a frontier of 2^18-2^19 branches
 CLIFFORD_T_TIMED = 38      # T gates: about 2^22 branches explored
 CLI_DM_N, CLI_DM_GATES, CLI_DM_T = 16, 320, 12   # main_dm's circuit
+SHARDS = (4, 8)            # sharded: shards on the one card
 TN_TF32_TOL = 1e-6         # |change| / |amp| when the global TF32 flags
                            # are turned on (one TF32 pass gives ~1e-3)
 # Published peaks (NVIDIA data sheets, dense): bytes/s, fp32 FLOP/s outside
@@ -266,7 +291,7 @@ KERNEL_INFO = {
 
 
 PHASES = ('build', 'kernels', 'parity', 'paths', 'probes', 'main_path',
-          'dm', 'trajectories', 'clifford', 'cli', 'tn')
+          'dm', 'trajectories', 'clifford', 'cli', 'sharded', 'tn')
 
 
 class PhaseError(RuntimeError):
@@ -1888,6 +1913,269 @@ def tn_profile(sc, r):
             'top_kernels_ms': top}
 
 
+def straight_probs(S, n, positions):
+    """Outcome probabilities of physical ``positions`` (joint, in the
+    order given) of the straight container ``S``."""
+    from hybridq_tpu_torch.simulation.sharded import _bit_view
+
+    N = 2 ** n
+    shape, order = _bit_view(n, [n - 1 - p for p in positions])
+    k = len(positions)
+    p2 = (S[:N] * S[:N] + S[N:] * S[N:]).view(shape)
+    m = p2.sum(dim=tuple(range(0, 2 * k + 1, 2)))
+    return m.permute([order.index(j) for j in range(k)]).reshape(-1)
+
+
+def sharded_full_width(m, gates, n, name):
+    """Phase ``sharded`` (a), and (b) on 4 shards: see the module
+    docstring.  Returns the line's numbers."""
+    import torch
+    from hybridq_tpu_torch import Circuit, Gate
+    from hybridq_tpu_torch.convert import circuit_from_matrices
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+    from hybridq_tpu_torch.simulation import kernels as ik
+    from hybridq_tpu_torch.simulation.sharded import ShardedIndexedEvolver
+
+    qubits = list(range(n))
+    circuit = circuit_from_matrices(gates)
+    ev = ShardedIndexedEvolver(n, devices=['cuda:0'] * m)
+    blocks = ev._compressed(circuit)
+    ops, planned_perm = ev._schedule(blocks, {q: q for q in qubits})
+    planned = sum(op[0] == 'swap' for op in ops)
+    shard_bytes = m * 2 ** (ev.n_local + 1) * 4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    psi = ev.prepare_state('0' * n)
+    fk.reset_counts()
+    t0 = time.perf_counter()
+    psi = ev.evolve(psi, circuit, qubits=qubits)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = fk.counts()
+    exchanges = ev.exchanges
+    peak = torch.cuda.max_memory_allocated()
+    r = {'shards': m, 'n_local': ev.n_local, 'blocks': len(blocks),
+         'launches': launches['apply_bits'], 'exchanges': exchanges,
+         'planned_exchanges': planned, 'perm': list(ev.perm),
+         'first_pass_s': first_s, 'peak_gib': peak / 2 ** 30,
+         'peak_over_shards': peak / shard_bytes}
+    check(launches['apply_bits'] == m * len(blocks),
+          f"sharded ({m}): apply_bits launched {launches['apply_bits']} "
+          f"times, not shards x blocks = {m * len(blocks)}")
+    plain = {k: v for k, v in launches.items() if k.endswith('_plain') and v}
+    check(not plain, f"sharded ({m}): a plain version ran: {plain}")
+    check(exchanges == planned and ev.perm == planned_perm,
+          f"sharded ({m}): {exchanges} exchanges, the schedule plans "
+          f"{planned}")
+    check(exchanges > 0, f"sharded ({m}): no global qubit was hit")
+
+    # The straight engine on the same gates, each qubit at the physical
+    # position the sharded run left it in: its container in canonical
+    # order is the shards laid end to end.
+    pos = {q: p for p, q in enumerate(ev.perm)}
+    sev = ik.IndexedEvolver(n, device='cuda')
+    S = sev.prepare_state('0' * n)
+    for U, qs in gates:
+        S = sev.apply_gate(S, U, tuple(pos[q] for q in qs))
+    N, Nl = 2 ** n, 2 ** ev.n_local
+    rms = torch.linalg.vector_norm(S).item() / N ** 0.5
+    d = 0.0
+    for i, s in zip(ev.mesh.index, psi):
+        d = max(d, (s[:Nl] - S[i * Nl:(i + 1) * Nl]).abs().max().item(),
+                (s[Nl:] - S[N + i * Nl:N + (i + 1) * Nl]).abs().max().item())
+    r.update({'max_abs_err': d, 'rel_err': d / rms})
+    check(d / rms <= TOL, f"sharded ({m}): max|d|/rms {d / rms:.3g} > "
+          f"{TOL} against the straight engine")
+
+    if m == SHARDS[0]:
+        # (b) collectives against the straight container
+        ex0 = ev.exchanges
+        # a global qubit and two local ones; X on the other global qubit
+        qs3 = [ev.perm[0]] + [q for q in (n // 2, n - 4, n // 2 - 1)
+                              if q != ev.perm[0]][:2]
+        z = 2 * n // 3 + (ev.perm[1] == 2 * n // 3)
+        psi, probs = ev.probabilities(psi, qs3)
+        want = straight_probs(S, n, [pos[q] for q in qs3]).double().cpu()
+        dp = float(np.abs(probs - want.numpy()).max())
+        op = Circuit([Gate('X', qubits=[ev.perm[1]]),
+                      Gate('Z', qubits=[z])])
+        perm0 = list(ev.perm)
+        got = ev.expectation_value(psi, op, qubits=qubits)
+        check(ev.perm == perm0, "sharded: expectation_value moved the "
+              "layout")
+        T_ = S.clone()
+        for g in op:
+            fk.apply_bits(T_, torch.as_tensor(np.asarray(g.matrix(),
+                                                         np.complex64),
+                                              device=S.device),
+                          [n - 1 - pos[g.qubits[0]]])
+        want_e = complex(torch.dot(S[:N], T_[:N]).item() +
+                         torch.dot(S[N:], T_[N:]).item(),
+                         torch.dot(S[:N], T_[N:]).item() -
+                         torch.dot(S[N:], T_[:N]).item())
+        del T_
+        de = abs(got - want_e)
+        q = ev.perm[0]
+        p0 = straight_probs(S, n, [pos[q]])[0].item()
+        psi = ev.project(psi, [q], 0, renormalize=False)
+        norm_p = ev.norm(psi)
+        psi = ev.project(psi, [q], 0)
+        norm_r = ev.norm(psi)
+        r['collectives'] = {
+            'probabilities': {'qubits': qs3, 'max_abs_err': dp,
+                              'tol': TOL},
+            'expectation_value': {'op': f'X{op[0].qubits[0]} Z{z}',
+                                  'value': [got.real, got.imag],
+                                  'straight': [want_e.real, want_e.imag],
+                                  'abs_err': de, 'tol': TOL},
+            'project': {'qubit': q, 'norm2': norm_p ** 2, 'p0': p0,
+                        'abs_err': abs(norm_p ** 2 - p0),
+                        'renormalized_norm': norm_r},
+            'exchanges': ev.exchanges - ex0}
+        check(dp <= TOL, f"sharded: probabilities off by {dp:.3g}")
+        check(de <= TOL, f"sharded: expectation_value off by {de:.3g} "
+              "(of <psi|psi> = 1)")
+        check(abs(norm_p ** 2 - p0) <= TOL and abs(norm_r - 1) <= NORM_TOL,
+              f"sharded: project: norm^2 {norm_p ** 2} against p0 {p0}, "
+              f"renormalized {norm_r}")
+    del S
+
+    # warm passes: the sharded one beside the straight one, in one run
+    torch.cuda.synchronize()
+    ex0 = ev.exchanges
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        psi = ev.evolve(psi, circuit, qubits=qubits)
+    torch.cuda.synchronize()
+    pass_s = (time.perf_counter() - t0) / REPS
+    pass_ex = (ev.exchanges - ex0) / REPS
+    S = sev.prepare_state('0' * n)
+    S, straight_s, _, _ = timed_passes(sev, S, gates, 'sh')
+    del S, sev
+    torch.cuda.empty_cache()
+    # one exchange, timed: swap global bit 0 with slot 0 an even number
+    # of times, the warm call included (each is its own inverse)
+    ex_ms = time_ms(lambda: ev.mesh.exchange(psi, 0, 0, ev.n_local),
+                    2 * REPS + 1)
+    ex_bytes = m * 2 ** ev.n_local * 4 * 2     # half of each shard, r + w
+    norm = ev.norm(psi)
+    check(abs(norm - 1) <= NORM_TOL, f"sharded ({m}): norm {norm}")
+    del psi
+    torch.cuda.empty_cache()
+    r.update({'pass_s': pass_s, 'gates_per_s': len(gates) / pass_s,
+              'exchanges_per_pass': pass_ex,
+              'straight_pass_s': straight_s,
+              'straight_gates_per_s': len(gates) / straight_s,
+              'sharded_over_straight': pass_s / straight_s,
+              'exchange_ms': ex_ms, 'exchange_bytes': ex_bytes,
+              'exchange_bound_ms': ex_bytes / peaks(name)[0] * 1e3,
+              'exchange_share': pass_ex * ex_ms / (pass_s * 1e3),
+              'norm': norm})
+    return r
+
+
+def phase_sharded(out, name):
+    """The sharded engines on one card: see the module docstring."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from hybridq_tpu_torch import Circuit, Gate, parallel
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.simulation import fused_kernels as fk
+    from hybridq_tpu_torch.simulation import simulate
+    from hybridq_tpu_torch.simulation.clifford import update_pauli_string
+    from hybridq_tpu_torch.simulation.tn import make_plan
+
+    card = card_power()
+    n = N_MAIN
+    gates = bench_workload(n, 4, MAIN_GATES, np.random.default_rng(SEED))
+    summary = {}
+    for m in SHARDS:
+        r = sharded_full_width(m, gates, n, name)
+        summary[m] = r['launches']
+        emit({'phase': 'sharded', 'part': 'full_width', 'n': n,
+              'gates': len(gates), **r, 'card': card}, out)
+
+    # (c) simulate's entry point at n = 24, against the straight engine
+    ns = N_PARITY
+    np.random.seed(SEED)
+    c = Circuit([Gate('H', qubits=[q]) for q in range(ns)]) + \
+        get_rqc(ns, PARITY_GATES[0], indexes=list(range(ns)))
+    want = simulate(c, initial_state='0', optimize='evolution')
+    rms = float(np.sqrt(np.mean(np.abs(want) ** 2)))
+    amax = float(np.abs(want).max())
+    fk.reset_counts()
+    got, info = simulate(c, initial_state='0', optimize='evolution-sharded',
+                         devices=['cuda:0'] * SHARDS[0], return_info=True)
+    launches = fk.counts()
+    d = float(np.abs(got - want).max())
+    emit({'phase': 'sharded', 'part': 'simulate', 'n': ns, 'gates': len(c),
+          'engine': info['engine'], 'shards': SHARDS[0],
+          'seconds': info['runtime (s)'], 'launches': launches,
+          'rel_err': d / rms, 'err_over_max_amp': d / amax, 'card': card},
+         out)
+    check(info['engine'] == 'sharded' and got.shape == (2,) * ns,
+          f"sharded: simulate gave {info['engine']} {got.shape}")
+    check_engine_launches("sharded simulate", 'indexed', launches)
+    check(d / amax <= PARITY_TOL and d / rms <= TOL,
+          f"sharded: simulate max|d|/max|amp| {d / amax:.3g}, "
+          f"max|d|/rms {d / rms:.3g}")
+
+    # (d) a process group of one under NCCL: the collectives on CUDA
+    # tensors (exchanges across ranks are held on the CPU under gloo)
+    cc = clifford_t_circuit(CLI_DM_N, CLI_DM_GATES, CLI_DM_T, SEED)
+    pauli = 'Z' + 'I' * (CLI_DM_N - 1)
+    whole = update_pauli_string(cc, pauli, use_mpi=False,
+                                float_type='float64')
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel.initialize(f'file://{tmp}/store', 1, 0, device='cuda',
+                            timeout=120)
+        try:
+            backend = dist.get_backend()
+            got_g = simulate(c, initial_state='0',
+                             optimize='evolution-sharded',
+                             devices=['cuda:0'] * SHARDS[0])
+            split = update_pauli_string(cc, pauli, use_mpi=True,
+                                        float_type='float64')
+        finally:
+            dist.destroy_process_group()
+    dg = float(np.abs(got_g - got).max())
+    dc = same_strings(split, whole, 1e-9, "sharded: use_mpi=True")
+    emit({'phase': 'sharded', 'part': 'nccl_group_of_one',
+          'backend': backend, 'simulate_max_abs_diff': dg,
+          'clifford_strings': len(split), 'clifford_of_max_v': dc,
+          'note': 'exchanges across ranks are held only on the CPU under '
+                  'gloo (tests/test_torch_parallel.py)', 'card': card}, out)
+    check(backend == 'nccl', f"sharded: the group's backend is {backend}")
+    check(dg <= 1e-6, f"sharded: simulate in the group differs by {dg:.3g}")
+
+    # (e) the TN phase's case over two entries of one card
+    nt = N_TN
+    np.random.seed(SEED)
+    ct = get_rqc(nt, TN_GATES, indexes=list(range(nt)))
+    net, opt = simulate(ct, initial_state='0' * nt,
+                        final_state='.' * TN_OPEN + '0' * (nt - TN_OPEN),
+                        optimize='tn', tensor_only=True,
+                        max_time=TN_MAX_TIME)
+    tinfo, plan = make_plan(opt, target_size=TN_SLICED_WIDTH,
+                            time_budget=TN_MAX_TIME)
+    one = simulate(net, optimize=(tinfo, plan))
+    two = simulate(net, optimize=(tinfo, plan), devices=['cuda:0'] * 2)
+    trms = float(np.sqrt(np.mean(np.abs(one) ** 2)))
+    dt_ = float(np.abs(two - one).max())
+    emit({'phase': 'sharded', 'part': 'tn_two_entries', 'n': nt,
+          'n_slices': plan.nslices, 'rel_err': dt_ / trms, 'tol': TOL,
+          'card': card}, out)
+    check(plan.nslices % 2 == 0, f"sharded: {plan.nslices} slices")
+    check(dt_ / trms <= TOL, f"sharded: contract over two entries "
+          f"max|d|/rms {dt_ / trms:.3g}")
+    torch.cuda.empty_cache()
+    emit({'phase': 'sharded', 'ok': True, 'apply_bits_launches': summary,
+          'card': card}, out)
+
+
 def phase_tn(out, name):
     """The tensor-network engine (``simulation/tn``) on the card: a
     26-qubit ``simulate(optimize='tn')`` against complex128 evolution, the
@@ -2105,6 +2393,7 @@ def main(argv=None):
             'trajectories': lambda: phase_trajectories(out),
             'clifford': lambda: phase_clifford(out),
             'cli': lambda: phase_cli(out),
+            'sharded': lambda: phase_sharded(out, name),
             'tn': lambda: phase_tn(out, name)}
     try:
         summary = {}

@@ -26,7 +26,8 @@ from hybridq_tpu_torch.simulation._device import resolve_device
 
 __all__ = ['state_from_reference', 'state_to_reference',
            'pair_to_reference', 'circuit_from_matrices',
-           'tn_from_reference', 'load_reference_plan']
+           'tn_from_reference', 'load_reference_plan',
+           'sharded_from_reference']
 
 
 def _check_phys(phys, n):
@@ -80,6 +81,33 @@ def pair_to_reference(state: torch.Tensor) -> np.ndarray:
     if flat.size != 2 ** (n + 1):
         raise ValueError("state must hold 2^(n+1) floats")
     return flat.reshape(2, 2 ** n).copy()
+
+
+def sharded_from_reference(re: np.ndarray, im: np.ndarray,
+                           perm: Sequence[int], devices=None):
+    """A JAX sharded engine's state -> ``(shards, perm)`` for the port's
+    sharded engines on ``devices``: ``re`` and ``im`` are its
+    ``(2^g, 2^n_local)`` host arrays and ``perm`` its layout (physical
+    position -> logical qubit), kept as it is, so that a port evolver with
+    ``ev.perm = perm`` continues where the JAX one stood.  Each shard of
+    this process is the split container of its row (re, then im), in the
+    precision of ``re``; ``devices`` as the engines take it."""
+    from hybridq_tpu_torch.parallel.mesh import Mesh
+
+    re, im = np.asarray(re), np.asarray(im)
+    if re.shape != im.shape or re.ndim != 2 or \
+            re.shape[0] & (re.shape[0] - 1) or \
+            re.shape[1] & (re.shape[1] - 1):
+        raise ValueError("re and im must be (2^g, 2^n_local) arrays")
+    n = (re.size - 1).bit_length()
+    perm = _check_phys(perm, n)
+    mesh = Mesh(devices)
+    if mesh.size != re.shape[0]:
+        raise ValueError(f"{re.shape[0]} shards given, the mesh of "
+                         f"these devices holds {mesh.size}")
+    shards = [torch.from_numpy(np.concatenate([re[d], im[d]])).to(dev)
+              for d, dev in zip(mesh.index, mesh.devices)]
+    return shards, perm
 
 
 def circuit_from_matrices(items) -> Circuit:

@@ -22,8 +22,11 @@ backends run the same algorithm:
 - ``backend='numpy'``: the host copy of JAX's numpy backend, with
   ``parallel`` worker processes.
 
-The cross-process split (``use_mpi``, JAX's ``_distributed_merge``) is not
-ported yet; ``use_mpi=True`` raises, naming its ROADMAP item.
+Across the processes of a ``torch.distributed`` group (``parallel``),
+``use_mpi`` splits the branch frontier as JAX's does: every process runs
+the same breadth-first expansion until the frontier is wide enough, takes
+its share, and the partial dicts merge with one all-gather
+(``_distributed_merge``), after which every process holds the same dict.
 """
 
 from __future__ import annotations
@@ -45,7 +48,6 @@ _PAULIS = [Gate(g).matrix().astype('complex128') for g in _PAULI_NAMES]
 _PAULI_BYTES = np.frombuffer(b'IXYZ', dtype=np.uint8)
 _PAULI_BASIS_CACHE: dict = {}
 _BACKENDS = ('torch', 'numpy')
-_NOT_PORTED = "ROADMAP.md Queue 1, item 11 (sharded engines)"
 
 
 def _pauli_basis(k: int) -> np.ndarray:
@@ -286,7 +288,7 @@ def _dfs_chunk(args):
     return dict(db), info['n_explored_branches'], info['largest_batch']
 
 
-def _pool_dfs(gates, codes, phases, n_workers, db, info, branch_atol,
+def _pool_dfs(gates, gi0, codes, phases, n_workers, db, info, branch_atol,
               max_batch, merge_every, max_vm):
     """The numpy backend over ``n_workers`` processes: breadth first
     until the frontier is wide enough to split, then the chunks depth
@@ -296,7 +298,7 @@ def _pool_dfs(gates, codes, phases, n_workers, db, info, branch_atol,
     holds a CUDA context can use them."""
     import multiprocessing as mp
 
-    gi = 0
+    gi = gi0
     while gi < len(gates) and len(codes) and len(codes) < 4 * n_workers:
         codes, phases = _apply_gate_batch(codes, phases, gates[gi],
                                           branch_atol)
@@ -321,6 +323,47 @@ def _pool_dfs(gates, codes, phases, n_workers, db, info, branch_atol,
             info['largest_batch'] = max(info['largest_batch'], largest)
 
 
+def _distributed_merge(db, n):
+    """Sum the partial dicts of the group's processes (JAX's
+    ``_distributed_merge``): each process encodes its strings as padded
+    (codes, phases) arrays, one ``all_gather`` over the group's backend
+    (CUDA tensors under NCCL, CPU tensors under gloo) replicates them,
+    and every process returns the same merged dict.  Without a group
+    (``use_mpi=True`` on one process) the dict is returned as it is."""
+    import torch.distributed as dist
+
+    from hybridq_tpu_torch.parallel import _group
+    from hybridq_tpu_torch.parallel.mesh import _collective_device
+
+    if not _group():
+        return db
+    cdev = _collective_device()
+    world = dist.get_world_size()
+
+    def all_gather(x):
+        x = torch.as_tensor(x, device=cdev)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        return torch.stack(parts).cpu().numpy()
+
+    keys = sorted(db)
+    sizes = all_gather(np.asarray([len(keys)], np.int64)).reshape(-1)
+    m = max(int(sizes.max()), 1)
+    codes = np.zeros((m, n), np.int32)
+    for i, key in enumerate(keys):
+        codes[i] = [_PAULI_NAMES.index(c) for c in key]
+    phases = np.zeros((m,), np.float64)
+    phases[:len(keys)] = [db[key] for key in keys]
+    all_codes, all_phases = all_gather(codes), all_gather(phases)
+    out = defaultdict(float)
+    for p in range(world):
+        cnt = int(sizes[p])
+        for key, ph in zip(_string_keys(all_codes[p][:cnt].astype(np.uint8)),
+                           all_phases[p][:cnt]):
+            out[key] += float(ph)
+    return out
+
+
 def update_pauli_string(circuit, pauli_string, phase: float = 1,
                         parallel=False, return_info: bool = False,
                         use_mpi=None, compress: int = 4,
@@ -338,8 +381,10 @@ def update_pauli_string(circuit, pauli_string, phase: float = 1,
     same backend on the host) in ``float_type``; ``backend='numpy'`` runs
     JAX's host backend.  ``parallel`` (numpy backend only, ignored by
     'torch' as JAX's 'jax' backend ignores it): False/1 = one process,
-    True = all cores, int = that many worker processes.  ``use_mpi=True``
-    is not ported yet and raises.
+    True = all cores, int = that many worker processes.  ``use_mpi``:
+    None splits the branches across the processes of an initialized
+    group (``parallel.initialize``), True always (one process without a
+    group), False never.
 
     ``max_virtual_memory`` (default 80): abort with ``MemoryError``
     when the host's memory use exceeds this percentage (reference
@@ -351,10 +396,6 @@ def update_pauli_string(circuit, pauli_string, phase: float = 1,
     if backend not in _BACKENDS:
         raise ValueError(f"backend must be one of {_BACKENDS}, "
                          f"got {backend!r}")
-    if use_mpi:
-        raise NotImplementedError(
-            "use_mpi=True (the cross-process branch split) is not ported "
-            f"to hybridq_tpu_torch yet: see {_NOT_PORTED}")
     if backend == 'torch':
         from hybridq_tpu_torch.simulation._device import resolve_device
 
@@ -452,18 +493,42 @@ def update_pauli_string(circuit, pauli_string, phase: float = 1,
     else:
         n_workers = max(int(parallel or 1), 1)
 
+    # Cross-process branch split (JAX's, ``clifford.py:455-484``): every
+    # process runs the same breadth-first expansion until the frontier is
+    # wide enough to split, then takes its share of it.
+    from hybridq_tpu_torch import parallel
+    distributed = parallel.is_distributed() if use_mpi is None \
+        else bool(use_mpi)
+    gi0 = 0
+    if distributed:
+        pid, nproc = parallel.process_index(), parallel.process_count()
+        while gi0 < len(gates) and len(codes) and \
+                len(codes) < 4 * nproc * n_workers:
+            codes, phases = _apply_gate_batch(codes, phases, gates[gi0],
+                                              run[0])
+            gi0 += 1
+            codes, phases = _merge_batch(codes, phases)
+            info['largest_batch'] = max(info['largest_batch'], len(codes))
+        share = np.array_split(np.arange(len(codes)), nproc)[pid]
+        codes, phases = codes[share], phases[share]
+
     if backend == 'torch':
         dtype = torch.float64 if float_type == np.dtype('float64') \
             else torch.float32
         gates = [_torch_gate(g, dtype, device) for g in gates]
-        _dfs(gates, 0, torch.as_tensor(codes, device=device),
+        _dfs(gates, gi0, torch.as_tensor(codes, device=device),
              torch.as_tensor(phases, dtype=dtype, device=device),
              _apply_gate_batch_torch, _merge_batch_torch, db, info, *run)
     elif n_workers > 1 and len(gates):
-        _pool_dfs(gates, codes, phases, n_workers, db, info, *run)
+        _pool_dfs(gates, gi0, codes, phases, n_workers, db, info, *run)
     else:
-        _dfs(gates, 0, codes, phases, _apply_gate_batch, _merge_batch, db,
-             info, *run)
+        _dfs(gates, gi0, codes, phases, _apply_gate_batch, _merge_batch,
+             db, info, *run)
+
+    # Every process's partial sums merge before the atol filter, so that
+    # the contributions of all processes to one string add up first.
+    if distributed:
+        db = _distributed_merge(db, n)
 
     # Drop negligible strings.
     atol = kwargs['atol']

@@ -52,26 +52,30 @@ def prepare_state(state: str, d=2, complex_type='complex64') -> np.ndarray:
     return np.asarray(psi, dtype=complex_type)
 
 
-def token_container(state: str, n: int, device) -> torch.Tensor:
-    """The split f32 container (``2^(n+1)`` floats, re half then im half)
-    of a token product state of ``n`` qubits, built on ``device``: the re
-    half is ``outer(row_amp, lane_amp)`` over the first ``n - 7`` and the
-    last ``min(n, 7)`` qubits, written straight into the container with no
-    state-sized temporary; the tokens are real, so the im half is 0."""
+def token_container(state: str, n: int, device,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The split container (``2^(n+1)`` floats of ``dtype``, re half then
+    im half) of a token product state of ``n`` qubits, built on
+    ``device``: the re half is ``outer(row_amp, lane_amp)`` over the first
+    ``n - 7`` and the last ``min(n, 7)`` qubits, written straight into the
+    container with no state-sized temporary; the tokens are real, so the
+    im half is 0."""
     state = _check_state(state, 2)
     if len(state) != n:
         raise ValueError("Wrong number of qubits for state.")
     lo = min(n, 7)
 
+    ftype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
+
     def amps(tokens):
-        a = np.array([1.0], dtype=np.float32)
+        a = np.array([1.0], dtype=ftype)
         for s in tokens:
             a = np.multiply.outer(
-                a, TOKEN_VECTORS[s].astype(np.float32)).reshape(-1)
+                a, TOKEN_VECTORS[s].astype(ftype)).reshape(-1)
         return torch.as_tensor(a, device=device)
 
     row, lane = amps(state[:n - lo]), amps(state[n - lo:])
-    out = torch.zeros(2 ** (n + 1), dtype=torch.float32, device=device)
+    out = torch.zeros(2 ** (n + 1), dtype=dtype, device=device)
     torch.mul(row[:, None], lane[None, :],
               out=out[:2 ** n].view(2 ** (n - lo), 2 ** lo))
     return out

@@ -20,12 +20,15 @@ The counterpart of ``hybridq_tpu/simulation/simulation.py`` (its
     ``TensorNetwork`` as ``circuit``): the sliced tensor-network engine
     (``tn/simulate.py``), planned on the host and contracted on the
     device; ``backend='numpy'`` contracts on the host with numpy.
+  * ``'evolution-sharded'``: the state split over a mesh of shards
+    (``sharded.py``; ``sharded_mode='indexed'``, the default, or
+    ``'traced'``; ``devices=`` lists this process's devices, one shard
+    each, ``['cuda:0'] * 4`` on one card, ``['cpu'] * 4`` on the host).
   * ``expectation_value(state, op, qubits_order)``.
 
-``device=None`` means ``'cuda'``; without a CUDA device ``simulate``
-raises (pass ``device='cpu'`` to run on the host, as the tests do).  The
-sharded engines, not ported yet, raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+``device=None`` means ``'cuda'``, or the first entry of ``devices=`` when
+given; without a CUDA device ``simulate`` raises (pass ``device='cpu'``
+to run on the host, as the tests do).
 """
 
 from __future__ import annotations
@@ -42,21 +45,12 @@ from hybridq_tpu_torch.simulation._device import resolve_device
 
 __all__ = ['simulate', 'expectation_value']
 
-_NOT_PORTED = {
-    'sharded': "ROADMAP.md Queue 1, item 11 (sharded engines)",
-}
 _COMPLEX_TYPES = (np.dtype('complex64'), np.dtype('complex128'))
 
 # The engine of 'evolution' on a CUDA device from 20 qubits in complex64:
 # 'indexed' (the straight route) or 'fused' (FusedEvolver).  PERF.md
 # records the chip_smoke.py main_path run that chose it.
 ENGINE_ON_CARD = 'indexed'
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to hybridq_tpu_torch yet: see "
-        f"{_NOT_PORTED[what]}")
 
 
 def _preprocess_circuit(circuit, initial_state, final_state, simplify,
@@ -134,6 +128,8 @@ def simulate(circuit, initial_state=None, final_state=None,
     if np.dtype(complex_type) not in _COMPLEX_TYPES:
         raise ValueError(f"complex_type must be complex64 or complex128, "
                          f"got {complex_type}")
+    if device is None and kwargs.get('devices'):
+        device = list(kwargs['devices'])[0]
     if evolution or backend != 'numpy':
         device = resolve_device(device)
 
@@ -215,13 +211,19 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
     if initial_state is None:
         raise ValueError(
             "'initial_state' must be specified for optimize='evolution'.")
-    if sub.split('-')[0] == 'sharded':
-        raise _not_ported('sharded')
-    if sub not in ('tpu', 'fused', 'indexed') and \
+    if sub not in ('tpu', 'fused', 'indexed', 'sharded') and \
             sub.split('-')[0] != 'einsum':
         raise ValueError(f"optimize='evolution-{sub}' not implemented.")
 
     complex_type = np.dtype(complex_type)
+    if sub == 'sharded':
+        t0 = _time_mod.time()
+        psi = _evolve_sharded(circuit, qubits, initial_state, complex_type,
+                              device, kwargs)
+        info.update({'engine': 'sharded',
+                     'runtime (s)': _time_mod.time() - t0})
+        psi = psi.astype(complex_type, copy=False)
+        return (psi, info) if kwargs['return_info'] else psi
 
     # Compress into k-qubit blocks, never merging FunctionalGates.
     compress_opt = kwargs['compress']
@@ -275,6 +277,34 @@ def _engine(sub, n_qubits, complex_type, device, kwargs) -> str:
                                                           'high'):
         return ENGINE_ON_CARD
     return 'torch'
+
+
+def _evolve_sharded(circuit, qubits, initial_state, complex_type, device,
+                    kwargs):
+    """The sharded engines (``sharded.py``) over ``devices=`` (``None``:
+    this process's card in a process group, else every visible card, or
+    the host when ``device`` is the CPU).  ``sharded_mode='indexed'``
+    (default) runs gate by gate with Measure/Projection on the shards;
+    ``'traced'`` plans the whole circuit first.  Returns the gathered
+    host state."""
+    from hybridq_tpu_torch.simulation.sharded import (ShardedEvolver,
+                                                      ShardedIndexedEvolver)
+
+    mode = kwargs.get('sharded_mode') or 'indexed'
+    cls = ShardedIndexedEvolver if mode == 'indexed' else ShardedEvolver
+    devices = kwargs.get('devices')
+    if devices is None and device.type == 'cpu':
+        devices = [device]
+    ev = cls(n_qubits=len(qubits), devices=devices,
+             complex_type=complex_type,
+             compress=kwargs.get('compress', 2) or 2)
+    if isinstance(initial_state, str):
+        psi = ev.prepare_state(initial_state)
+    else:
+        psi = ev.scatter_state(
+            np.asarray(initial_state, dtype=complex_type))
+    psi = ev.evolve(psi, circuit, qubits=qubits)
+    return ev.gather(psi)
 
 
 def _host_round_trip(payload, psi, qubits):

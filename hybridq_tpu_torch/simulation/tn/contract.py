@@ -314,23 +314,32 @@ class SlicedContractor:
     def contract(self, backend='torch', devices=None, device=None,
                  verbose: bool = False, slice_range=None) -> np.ndarray:
         """``backend='numpy'``: ``contract_np``; otherwise
-        ``contract_torch`` on ``device`` (or the single entry of
-        ``devices``)."""
-        if devices is not None:
-            devices = list(devices)
-            if len(devices) > 1:
-                raise NotImplementedError(
-                    "contraction over several devices is not ported to "
-                    "hybridq_tpu_torch yet: see ROADMAP.md Queue 1, item "
-                    "11 (sharded engines and the slice all_reduce)")
-            if devices and device is None:
-                device = devices[0]
+        ``contract_torch`` on ``device`` (or the first entry of
+        ``devices``).  With more than one entry in ``devices``, no
+        ``slice_range`` and a slice count that they divide, each device
+        sums its contiguous range of slices and the partial sums are
+        added (JAX's ``_contract_jax_mesh`` and its ``psum``); the devices
+        take their ranges one after the other.  Across processes, split
+        the slices with ``parallel.local_slice_range`` and pass each
+        process's range as ``slice_range``."""
+        devices = None if devices is None else list(devices)
+        if devices and device is None:
+            device = devices[0]
         if backend == 'numpy':
             return self.contract_np(verbose=verbose,
                                     slice_range=slice_range)
         if backend != 'torch':
             raise ValueError(f"backend must be 'torch' or 'numpy', "
                              f"got {backend!r}")
+        n_dev = len(devices) if devices else 1
+        if slice_range is None and n_dev > 1 and \
+                self.nslices % n_dev == 0:
+            per = self.nslices // n_dev
+            out = sum(self.contract_torch(device=d,
+                                          slice_range=(i * per,
+                                                       (i + 1) * per))
+                      .astype(np.complex128) for i, d in enumerate(devices))
+            return out.astype(self.complex_type)
         return self.contract_torch(device=device, slice_range=slice_range)
 
 

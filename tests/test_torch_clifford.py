@@ -281,12 +281,18 @@ def test_parallel_workers_match_serial():
           want, F64)
 
 
-def test_unported_and_foreign_options_raise():
-    """``use_mpi=True`` names its ROADMAP item; ``backend='jax'`` names
-    the port's ``'torch'``."""
+def test_use_mpi_runs_and_foreign_options_raise():
+    """``use_mpi=True`` on one process runs JAX's frontier split and
+    merge, and gives JAX's dict for both backends; ``backend='jax'``
+    names the port's ``'torch'``."""
+    build, kw = CASES['random_circuit_reconstruction-4-15']
+    c, p = build(J)
+    want = jcl.update_pauli_string(c, p, float_type='float64',
+                                   use_mpi=True, **kw)
+    for backend in BACKENDS:
+        _same(_port('random_circuit_reconstruction-4-15', backend,
+                    use_mpi=True), want, F64)
     c, p = _t_gates(T)
-    with pytest.raises(NotImplementedError, match='item 11'):
-        tcl.update_pauli_string(c, p, use_mpi=True, device='cpu')
     with pytest.raises(ValueError, match="'torch'"):
         tcl.update_pauli_string(c, p, backend='jax')
     with pytest.raises(ValueError, match='backend'):

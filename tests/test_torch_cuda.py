@@ -579,3 +579,171 @@ def test_cuda_clifford_matches_numpy(float_type, tol, cuda):
     scale = max(abs(v) for v in want.values())
     for k in set(got) | set(want):
         assert abs(got.get(k, 0) - want.get(k, 0)) <= tol * scale
+
+
+@pytest.mark.parametrize('n_shards', [4, 8])
+def test_cuda_sharded_matches_straight(n_shards, cuda):
+    """``ShardedIndexedEvolver`` on ``['cuda:0'] * n_shards`` at n = 20
+    against the straight engine on the same gates, global qubits hit:
+    one ``apply_bits`` launch a shard and block, no plain call, and the
+    same state within f32 rounding."""
+    from hybridq_tpu_torch.convert import circuit_from_matrices
+    from hybridq_tpu_torch.simulation.sharded import ShardedIndexedEvolver
+
+    n = 20
+    rng = np.random.default_rng(12)
+    gates = []
+    for _ in range(24):
+        k = int(rng.integers(1, 5))
+        gates.append((_rand_u(k, rng),
+                      tuple(int(q) for q in rng.choice(n, k,
+                                                       replace=False))))
+    assert any(q < 3 for _, qs in gates for q in qs)
+    ev = ShardedIndexedEvolver(n, devices=['cuda:0'] * n_shards,
+                               compress=0)
+    psi = ev.prepare_state('+' * n)
+    fk.reset_counts()
+    psi = ev.evolve(psi, circuit_from_matrices(gates), qubits=range(n))
+    torch.cuda.synchronize()
+    assert fk.counts()['apply_bits'] == n_shards * len(gates)
+    assert fk.counts()['apply_bits_plain'] == 0 and ev.exchanges > 0
+    st = IndexedEvolver(n, device=cuda)
+    s = st.prepare_state('+' * n)
+    for U, qs in gates:
+        s = st.apply_gate(s, U, qs)
+    np.testing.assert_allclose(ev.gather(psi), st.gather_host(s),
+                               atol=ATOL)
+
+
+def test_cuda_contract_over_two_entries(cuda):
+    """``contract(devices=['cuda:0'] * 2)``: each entry sums half of the
+    slices on the card; the sum equals one device's to 1e-5 of the
+    largest entry."""
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.simulation import simulate
+    from hybridq_tpu_torch.simulation.tn import make_plan
+
+    n = 12
+    np.random.seed(3)
+    c = get_rqc(n, 60, indexes=list(range(n)))
+    net, opt = simulate(c, initial_state='0' * n, final_state='..' + '0' *
+                        (n - 2), optimize='tn', tensor_only=True,
+                        max_time=2, device=cuda)
+    info, plan = make_plan(opt, target_size=2 ** 2, time_budget=2)
+    assert plan.nslices > 1
+    one = simulate(net, optimize=(info, plan), device=cuda)
+    two = simulate(net, optimize=(info, plan), devices=['cuda:0'] * 2)
+    assert np.abs(two - one).max() <= 1e-5 * np.abs(one).max()
+
+
+CARD_WORKER = r'''
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from hybridq_tpu_torch import Circuit, Gate, parallel
+from hybridq_tpu_torch.convert import circuit_from_matrices
+from hybridq_tpu_torch.simulation.clifford import update_pauli_string
+from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
+from hybridq_tpu_torch.simulation.sharded import ShardedIndexedEvolver
+
+device, n, timeout = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+parallel.initialize(device=device, timeout=timeout)
+rank, world = parallel.process_index(), parallel.process_count()
+rng = np.random.default_rng(5)
+gates = []
+for _ in range(24):
+    m = rng.standard_normal((16, 16)) + 1j * rng.standard_normal((16, 16))
+    gates.append((np.linalg.qr(m)[0], tuple(
+        int(q) for q in rng.choice(n, 4, replace=False))))
+ev = ShardedIndexedEvolver(n)          # this process's device: one shard
+psi = ev.evolve(ev.prepare_state('0' * n), circuit_from_matrices(gates),
+                qubits=range(n))
+st = IndexedEvolver(n, device=ev.mesh.devices[0])
+s = st.prepare_state('0' * n)
+for U, qs in gates:
+    s = st.apply_gate(s, U, qs)
+want = st.gather_host(s)
+d = float(np.abs(ev.gather(psi) - want).max())
+# the marginal summed in float64 (numpy's float32 sum over 23 axes is
+# off by about 1e-3 here)
+want_p = (np.abs(want.astype(np.complex128)) ** 2).sum(
+    axis=tuple(range(2, n - 1))).reshape(-1)
+probs_d = float(np.abs(ev.probabilities(psi, [0, 1, n - 1])[1] -
+                       want_p).max())
+d_after = float(np.abs(ev.gather(psi) - want).max())
+if ev.mesh.devices[0].type == 'cuda':
+    torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(10):
+    ev.mesh.exchange(psi, 0, 0, ev.n_local)
+if ev.mesh.devices[0].type == 'cuda':
+    torch.cuda.synchronize()
+ex_ms = (time.perf_counter() - t0) / 10 * 1e3
+cc = Circuit([Gate('H', [q]) for q in range(6)] +
+             [Gate('T', [q]) for q in range(6)] +
+             [Gate('CX', [q, q + 1]) for q in range(5)]) * 3
+kw = dict(float_type='float64', device=ev.mesh.devices[0])
+split = update_pauli_string(cc, 'ZIIXII', **kw)
+whole = update_pauli_string(cc, 'ZIIXII', use_mpi=False, **kw)
+clifford_d = max(abs(split.get(k, 0) - whole.get(k, 0))
+                 for k in set(split) | set(whole))
+print(json.dumps({'rank': rank, 'world': world, 'g': ev.g,
+                  'backend': dist.get_backend(), 'device': str(ev.mesh.devices[0]),
+                  'exchanges': ev.exchanges, 'max_abs_err': d,
+                  'probs_err': probs_d, 'state_err_after': d_after,
+                  'exchange_ms': ex_ms,
+                  'exchange_bytes_per_rank': 2 ** (ev.n_local + 1) * 4,
+                  'clifford_err': clifford_d, 'strings': len(split)}),
+      flush=True)
+dist.destroy_process_group()
+'''
+
+
+def run_card_workers(device, world, n, tmp_path, timeout=120):
+    """One worker interpreter per rank (``CARD_WORKER``) in a group on a
+    ``file://`` store; returns each rank's JSON line."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS='1',
+               HYBRIDQ_TPU_COORDINATOR=f'file://{tmp_path}/store',
+               HYBRIDQ_TPU_NUM_PROCESSES=str(world))
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', CARD_WORKER, device, str(n), str(timeout)],
+        env=dict(env, HYBRIDQ_TPU_PROCESS_ID=str(r)), cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=2 * timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    return [json.loads(log.strip().splitlines()[-1]) for log in logs]
+
+
+def test_cuda_nccl_exchanges_across_cards(tmp_path, cuda):
+    """One process per card, one shard each, under NCCL: every exchange
+    crosses a card; the gathered state and the probabilities equal the
+    straight engine's on one card, and the Clifford split equals the
+    unsplit expansion on every rank.  Needs two cards or more."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two CUDA devices or more (one process a card)")
+    world = 2 ** (world.bit_length() - 1)
+    for r in run_card_workers('cuda', world, 26, tmp_path):
+        print(r)
+        assert r['backend'] == 'nccl' and r['world'] == world
+        assert r['exchanges'] > 0 and r['max_abs_err'] <= ATOL
+        assert r['state_err_after'] <= ATOL
+        assert r['probs_err'] <= ATOL
+        assert r['clifford_err'] <= 1e-9

@@ -36,6 +36,9 @@ def test_no_forbidden_imports_in_source():
     files = sorted(PKG.rglob('*.py')) + [ROOT / 'chip_smoke.py']
     for name in ('fused_k4', 'bw', 'gather'):
         assert PKG / 'probes' / f'{name}.py' in files
+    for name in ('parallel/__init__.py', 'parallel/mesh.py',
+                 'simulation/sharded.py'):
+        assert PKG / name in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -63,7 +66,9 @@ def test_import_leaves_jax_unloaded():
             "hybridq_tpu_torch.simulation.clifford, hybridq_tpu_torch.cli, "
             "hybridq_tpu_torch.extras.io, hybridq_tpu_torch.extras.otoc, "
             "hybridq_tpu_torch.extras.gate, hybridq_tpu_torch.architecture, "
-            "hybridq_tpu_torch.architecture.plot; "
+            "hybridq_tpu_torch.architecture.plot, "
+            "hybridq_tpu_torch.parallel, hybridq_tpu_torch.parallel.mesh, "
+            "hybridq_tpu_torch.simulation.sharded; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -152,20 +157,29 @@ def test_simulate_needs_a_card_unless_told(monkeypatch):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize('optimize, kwargs, item', [
-    ('evolution-sharded', {}, 'item 11'),
-    ('tn', {'final_state': '.', 'devices': ['cpu', 'cpu']}, 'item 11'),
+@pytest.mark.parametrize('optimize, kwargs', [
+    ('evolution-sharded', {}),
+    ('tn', {'final_state': '..0', 'max_time': 1}),
 ])
-def test_unported_engines_name_their_roadmap_item(optimize, kwargs, item):
+def test_multi_device_engines_run_on_cpu_devices(optimize, kwargs):
     """The sharded engines, and a TN contraction over several devices,
-    raise naming their ROADMAP item."""
+    once named by their ROADMAP item as not ported, run on a list of CPU
+    devices (no ``device=``) and give the Bell state."""
     from hybridq_tpu_torch import Gate
     from hybridq_tpu_torch.simulation import simulate
 
-    c = [Gate('H', qubits=[0])]
-    with pytest.raises(NotImplementedError, match=item):
-        simulate(c, initial_state='0', optimize=optimize, device='cpu',
-                 **kwargs)
+    c = [Gate('H', qubits=[0]), Gate('CX', qubits=[0, 1]),
+         Gate('I', qubits=[2])]
+    psi, info = simulate(c, initial_state='000', optimize=optimize,
+                         devices=['cpu', 'cpu'], return_info=True,
+                         remove_id_gates=False, simplify=False, **kwargs)
+    assert info.get('engine') == ('sharded' if 'sharded' in optimize
+                                  else None)
+    if psi.ndim == 3:            # evolution: qubit 2 stays |0>
+        psi = psi[..., 0]
+    np.testing.assert_allclose(psi.reshape(-1),
+                               np.array([1, 0, 0, 1]) / np.sqrt(2),
+                               atol=1e-7)
 
 
 @pytest.mark.parametrize('optimize, complex_type, engine', [
@@ -217,22 +231,28 @@ def test_tn_and_einsum_need_a_card_unless_told(optimize, monkeypatch):
 
 
 ENTRY_POINTS = ['state_from_reference', 'IndexedEvolver',
-                'sample_trajectories', 'update_pauli_string', 'cli.main']
+                'sample_trajectories', 'update_pauli_string', 'cli.main',
+                'ShardedIndexedEvolver', 'ShardedEvolver',
+                'simulate-sharded']
 
 
 @pytest.mark.parametrize('entry', ENTRY_POINTS)
 def test_entry_points_need_a_card_unless_told(entry, monkeypatch, tmp_path):
     """``state_from_reference``, ``IndexedEvolver``,
-    ``sample_trajectories``, ``clifford.update_pauli_string`` and the
-    command line default to the card like ``simulate``: without one they
-    raise, naming ``device='cpu'``; told the CPU (``--device cpu``), they
-    run there."""
+    ``sample_trajectories``, ``clifford.update_pauli_string``, the
+    command line, both sharded evolvers and
+    ``simulate(optimize='evolution-sharded')`` default to the card like
+    ``simulate``: without one they raise, naming ``device='cpu'`` (the
+    evolvers: ``devices=['cpu']``); told the CPU (``--device cpu``, CPU
+    ``devices``), they run there."""
     from hybridq_tpu_torch import Circuit, Gate
     from hybridq_tpu_torch import cli
     from hybridq_tpu_torch.convert import state_from_reference
     from hybridq_tpu_torch.extras.io.qasm import to_qasm
-    from hybridq_tpu_torch.simulation import clifford, trajectories
+    from hybridq_tpu_torch.simulation import clifford, simulate, trajectories
     from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
+    from hybridq_tpu_torch.simulation.sharded import (ShardedEvolver,
+                                                      ShardedIndexedEvolver)
 
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     pair = np.zeros((2, 2 ** 3), dtype=np.float32)
@@ -249,6 +269,10 @@ def test_entry_points_need_a_card_unless_told(entry, monkeypatch, tmp_path):
                  (['--device', kw['device']] if kw else []))
         with open(out, 'rb') as f:
             return pickle.load(f)['simulate']
+
+    def run_sharded(cls, device=None):
+        ev = cls(3, devices=None if device is None else [device] * 2)
+        return ev.gather(ev.evolve(ev.prepare_state('000'), bell))[..., 0]
     make = {'state_from_reference': lambda **kw: state_from_reference(
                 pair, **kw)[0],
             'IndexedEvolver': lambda **kw: IndexedEvolver(
@@ -257,8 +281,16 @@ def test_entry_points_need_a_card_unless_told(entry, monkeypatch, tmp_path):
                 trajectories.sample_trajectories(bell, 2, **kw),
             'update_pauli_string': lambda **kw:
                 clifford.update_pauli_string(bell, 'ZI', **kw),
-            'cli.main': run_cli}[entry]
-    with pytest.raises(RuntimeError, match="device='cpu'"):
+            'cli.main': run_cli,
+            'ShardedIndexedEvolver': lambda **kw: run_sharded(
+                ShardedIndexedEvolver, **kw),
+            'ShardedEvolver': lambda **kw: run_sharded(ShardedEvolver, **kw),
+            'simulate-sharded': lambda **kw: simulate(
+                bell, initial_state='00', optimize='evolution-sharded',
+                **kw)}[entry]
+    told = r"devices=\['cpu'\]" if entry.startswith('Sharded') \
+        else "device='cpu'"
+    with pytest.raises(RuntimeError, match=told):
         make()
     got = make(device='cpu')
     if entry in ('state_from_reference', 'IndexedEvolver'):
