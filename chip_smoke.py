@@ -130,19 +130,31 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
   tn         the tensor-network engine: ``simulate(get_rqc(26, 150),
              optimize='tn')`` with 10 open final qubits on the card
              against the matching amplitudes of complex128 ``'evolution'``
-             on the card (max|d|/rms <= 1e-4), and again sliced to a
-             widest intermediate of 2^12; the committed Sycamore-53
-             plans (``scripts/_plan_cache``, read by
+             on the card (max|d|/rms <= 1e-4), its steps on ``tn_apply``
+             (``csrc/tn_apply.cu``), and again sliced to a widest
+             intermediate of 2^12; the committed Sycamore-53 plans
+             (``scripts/_plan_cache``, read by
              ``convert.load_reference_plan``) through
              ``SlicedContractor.contract_torch``: the depth-12 plan warm
-             over about 30 s of slices (seconds a slice, TFLOP/s, the
+             over about 10 s of slices (seconds a slice, TFLOP/s, the
              bound of a slice, device peak, the projected full
-             amplitude; then ``torch.profiler`` over 4 slices: kernel time
-             by kind and the device's busy share), two slices in complex64
-             against complex128 and again with the global TF32 flags on
-             (no change allowed), and one slice of the depth-20 plan.
-             Fails if the native path search did not build, or if a
-             contraction step ran off the card.  Runs last.
+             amplitude; ``tn_apply`` launched once for each slice-invariant
+             ``'apply'`` step and once a chunk for each batched one, the
+             plain version never); each ``tn_apply`` class (s, f) of the
+             plan at its widest step against the plain version
+             (max|d|/rms <= 1e-5 in complex64, 1e-12 in complex128) and
+             timed in turns beside ``torch.tensordot`` over the same legs
+             (``turns``), with the plain version and the bound; 16 slices
+             through the kernel route and through the plain route
+             (``tn_apply`` patched to ``tn_apply_plain``) in turns, the
+             sums within 1e-5; then ``torch.profiler`` over 4 slices:
+             kernel time by kind and the device's busy share), two slices
+             in complex64 against complex128 and again with the global
+             TF32 flags on (no change allowed), and one slice of the
+             depth-20 plan, timed (and a call of three, for what a slice
+             adds beyond the call's own work) and profiled.  Fails if
+             the native path search did not build, or if a contraction
+             step ran off the card.  Runs last.
   probes     the card's counterparts of the bandwidth and dot probes
              (``scripts/probe_pallas_bw.py``, ``probe_pallas_gather.py``)
              at the scripts' 2 GiB of f32: first ``probes.bw.main()`` and
@@ -242,9 +254,13 @@ N_TN, TN_GATES, TN_OPEN = 26, 150, 10   # tn: get_rqc(26, 150), 10 open legs
 TN_MAX_TIME = 10           # simulate_tn's path-search budget (s)
 TN_SLICED_WIDTH = 2 ** 12  # max_largest_intermediate that forces slices
 TN_TOL = 1e-4              # max|d|/rms, TN against complex128 evolution
-TN_SECONDS = 30.0          # timed slices of the d12 plan: about this long
+TN_SECONDS = 10.0          # timed slices of the d12 plan: about this long
 TN_PLANS = ('syc53_d12_s0_t26.pkl', 'syc53_d20_s0_t26.pkl')
 TN_PROFILE_SLICES = 4      # slices of the d12 plan under torch.profiler
+TN_TURN_SLICES = 16        # d12 slices of each turn, kernel against plain
+TN_APPLY_REPS = 10         # calls in each timed turn of a tn_apply class
+TN_APPLY_TOL = {'complex64': 1e-5, 'complex128': 1e-12}
+TN_APPLY_SUMMARY = (2, 2)  # the class the summary line reports
 TRAJ_HOLD = (14, 64)       # trajectories: (qubits, samples), card vs host
 TRAJ_WIDE = (27, 8)        # trajectories on apply_bits: 8 GiB of batch
 TRAJ_LAYERS = 8            # layers of n gates, each then depolarized
@@ -287,6 +303,9 @@ KERNEL_INFO = {
                      'scripts/probe_pallas_gather.py:32'),
     'dot_3xtf32': ('hybridq_tpu_torch/csrc/dot_probe.cu',
                    'scripts/probe_pallas_gather.py:233'),
+    # no Pallas kernel: JAX contracts these steps with XLA dot_general
+    'tn_apply': ('hybridq_tpu_torch/csrc/tn_apply.cu',
+                 'hybridq_tpu/simulation/tn/contract.py:101'),
 }
 
 
@@ -1871,8 +1890,10 @@ def tn_profile(sc, r):
     over ``contract_torch``, the device kernels' time by kind (the
     cuBLAS products, copies such as ``tensordot``'s permutes, the
     rest), the busy share (the union of kernel intervals over the
-    call's wall time) and the five costliest kernels.  None when the
-    trace holds no device kernel."""
+    call's wall time) and the five costliest kernels.  Kinds:
+    ``tn_apply`` (``csrc/tn_apply.cu``), ``gemm`` (cuBLAS), ``copy``
+    (permutes), ``other``.  None when the trace holds no device
+    kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1899,8 +1920,10 @@ def tn_profile(sc, r):
     for e in kernels:
         us = e.time_range.end - e.time_range.start
         low = e.name.lower()
-        kind = ('gemm' if any(w in low for w in ('gemm', 'cutlass', 'sm90',
-                                                  'xmma'))
+        kind = ('tn_apply' if any(w in low for w in ('tn_column_kernel',
+                                                      'tn_tile_kernel'))
+                else 'gemm' if any(w in low for w in ('gemm', 'cutlass',
+                                                       'sm90', 'xmma'))
                 else 'copy' if any(w in low for w in ('copy', 'elementwise'))
                 else 'other')
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
@@ -1911,6 +1934,106 @@ def tn_profile(sc, r):
             'device_busy_share': busy / 1e6 / wall,
             'kernel_ms_by_kind': by_kind, 'kernels': len(kernels),
             'top_kernels_ms': top}
+
+
+def tn_apply_classes(sc):
+    """The batched ``'apply'`` steps of a contractor's schedule by class
+    ``(s, f)``: ``{(s, f): (count, (step, inplace))}``, each with its
+    step that moves the most bytes (the class at its real widths)."""
+    batched, steps = sc.schedule()
+    classes = {}
+    for v, _, _, op in steps:
+        if op[0] != 'apply' or not batched[v]:
+            continue
+        step = op[1]
+        count, best = classes.get((step.s, step.f), (0, None))
+        if best is None or step.nx + step.ny > best[0].nx + best[0].ny:
+            best = (step, op[3])
+        classes[(step.s, step.f)] = (count + 1, best)
+    return classes
+
+
+def tn_apply_case(step, inplace, name, gen):
+    """One ``tn_apply`` class at its widths (a batch of one slice, d12's
+    chunk): the kernel against the plain version in complex64 and
+    complex128 (max|d|/rms, ``TN_APPLY_TOL``), in place too where the
+    executor runs it so; then the kernel (as the executor calls it) and
+    ``torch.tensordot`` over the same legs of the same complex64
+    operands in turns (``turns``), the plain version, and the bound: each
+    operand read and the result written once, or 8 real flops a complex
+    MAC at the fp32 peak."""
+    import torch
+    from hybridq_tpu_torch.simulation.tn import tn_kernels as tk
+
+    r = {'s': step.s, 'f': step.f, 'nx': step.nx, 'ny': step.ny,
+         'x_batched': step.x_batched, 'op_batched': step.op_batched,
+         'inplace': inplace}
+    for dtype in (torch.complex128, torch.complex64):
+        x = torch.randn((1,) * step.x_batched + (2,) * step.nx, dtype=dtype,
+                        device='cuda', generator=gen)
+        # 2^(-s/2): the norm holds in expectation over repeated in-place
+        # calls
+        op = torch.randn((1,) * step.op_batched + (2,) * (step.s + step.f),
+                         dtype=dtype, device='cuda', generator=gen) * \
+            2.0 ** (-step.s / 2)
+        want = tk.tn_apply_plain(x, op, step)
+        got = tk.tn_apply(x, op, step)
+        if inplace:
+            got = torch.stack([got, tk.tn_apply(x.clone(), op, step, True)])
+            want = torch.stack([want, want])
+        torch.cuda.synchronize()
+        rms = float(want.abs().pow(2).mean().sqrt())
+        d = float((got - want).abs().max())
+        key = str(dtype).replace('torch.', '')
+        r[f'max_abs_err_{key}'] = d
+        r[f'rel_err_{key}'] = d / rms
+        check(np.isfinite(d) and d / rms <= TN_APPLY_TOL[key],
+              f"tn_apply ({step.s}, {step.f}) {key}: max|d|/rms "
+              f"{d / rms:.3g} > {TN_APPLY_TOL[key]}")
+        del got, want
+    r['max_abs_err'] = r['max_abs_err_complex64']
+    # x and op: the complex64 operands, made last
+    xa = [step.x_batched + step.nx - 1 - b for b in step.xbits]
+    oa = [step.op_batched + step.s + step.f - 1 - b for b in step.ocol]
+    t = turns(lambda: tk.tn_apply(x, op, step, inplace),
+              lambda: torch.tensordot(x, op, dims=(xa, oa)),
+              TN_APPLY_REPS, 'tn_apply', host=True)
+    r.update({k: t[k] for k in ('ms', 'library_ms', 'device_ms',
+                                'library_device_ms', 'host_ms',
+                                'library_host_ms')},
+             grid=t['grid'], vs_library=t['ms'] / t['library_ms'],
+             plain_ms=time_ms(lambda: tk.tn_apply_plain(x, op, step),
+                              TN_APPLY_REPS))
+    bw, flops, _ = peaks(name)
+    nbytes = 8 * (x.numel() + op.numel() + 2 ** step.ny)
+    t_bytes = nbytes / bw
+    t_ops = 8 * 2 ** (step.nx + step.f) / flops
+    r.update(bytes=nbytes, bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by='bytes' if t_bytes >= t_ops else 'operations')
+    r['of_bound'] = r['bound_ms'] / r['ms']
+    del x, op
+    torch.cuda.empty_cache()
+    return r
+
+
+def tn_turns(sc, r):
+    """Whole slices of ``r``, the kernel route and the plain route
+    (``tn_apply`` patched to ``tn_apply_plain`` in the executor), in turns
+    (kernel, plain, plain, kernel), each turn one ``contract_torch`` over
+    ``r`` on the host clock; the two sums and the ms a slice of each."""
+    from hybridq_tpu_torch.simulation.tn import tn_kernels as tk
+
+    kernel = tk.tn_apply
+    sums, ms = {}, {'kernel': [], 'plain': []}
+    try:
+        for route in ('kernel', 'plain', 'plain', 'kernel'):
+            tk.tn_apply = kernel if route == 'kernel' else tk.tn_apply_plain
+            amp, dt, _ = timed_slices(sc, r)
+            sums[route] = amp
+            ms[route].append(dt / (r[1] - r[0]) * 1e3)
+    finally:
+        tk.tn_apply = kernel
+    return sums, ms
 
 
 def straight_probs(S, n, positions):
@@ -2186,10 +2309,12 @@ def phase_tn(out, name):
     from hybridq_tpu_torch.extras.random import get_rqc
     from hybridq_tpu_torch.simulation import simulate
     from hybridq_tpu_torch.simulation.tn import contract
+    from hybridq_tpu_torch.simulation.tn import tn_kernels as tk
 
     card = card_power()
     check(native.hgp_available(), "tn: the native path-search library "
           "did not build (g++)")
+    summary = []
 
     # Every contraction step must run on the card, none on the host.
     steps = {'n': 0}
@@ -2215,6 +2340,7 @@ def phase_tn(out, name):
         final = '.' * TN_OPEN + '0' * (n - TN_OPEN)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        tk.reset_counts()
         t0 = time.perf_counter()
         got, info = simulate(c, initial_state='0' * n, final_state=final,
                              optimize='tn', max_time=TN_MAX_TIME,
@@ -2222,6 +2348,7 @@ def phase_tn(out, name):
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         n_steps = steps['n']
+        sim_counts = tk.counts()
         psi, einfo = simulate(c, initial_state='0' * n,
                               complex_type='complex128', return_info=True)
         want = psi[(slice(None),) * TN_OPEN + (0,) * (n - TN_OPEN)]
@@ -2236,13 +2363,17 @@ def phase_tn(out, name):
               'log2_flops': float(np.log2(max(info['flops'], 1))),
               'log2_largest': float(np.log2(info['largest_intermediate'])),
               'n_slices': info['n_slices'], 'steps_on_card': n_steps,
-              'peak_gib': peak, 'reference': einfo['engine'],
+              'launches': sim_counts, 'peak_gib': peak,
+              'reference': einfo['engine'],
               'max_abs_err': d, 'rel_err': d / rms, 'tol': TN_TOL,
               'card': card}, out)
         check(got.shape == (2,) * TN_OPEN and got.dtype == np.complex64,
               f"tn: result {got.shape} {got.dtype}")
         check(np.isfinite(got).all(), "tn: non-finite amplitudes")
         check(n_steps > 0, "tn: no contraction step ran")
+        check(sim_counts['tn_apply'] > 0 and
+              sim_counts['tn_apply_plain'] == 0,
+              f"tn: simulate's steps did not run on tn_apply: {sim_counts}")
         check(d / rms <= TN_TOL, f"tn: max|d|/rms {d / rms:.3g} > {TN_TOL}")
 
         # The same amplitudes sliced: the batched steps on the card.
@@ -2271,11 +2402,20 @@ def phase_tn(out, name):
         plan = contract.ContractionPlan(tree, sliced)
         sc = contract.SlicedContractor(plan, net.tensors, oo)
         costs = tn_costs(sc, name)
+        batched, sched = sc.schedule()
+        n_apply = sum(op[0] == 'apply' and batched[v]
+                      for v, _, _, op in sched)
+        n_apply_fixed = sum(op[0] == 'apply' and not batched[v]
+                            for v, _, _, op in sched)
         timed_slices(sc, (0, 1))                      # warm
         _, dt2, _ = timed_slices(sc, (1, 3))
         count = int(max(2, min(sc.nslices - 3, TN_SECONDS / (dt2 / 2))))
         steps['n'] = 0
+        tk.reset_counts()
         amp, dt, peak = timed_slices(sc, (3, 3 + count))
+        launches = tk.counts()
+        # the slice-invariant steps once a call, the batched once a chunk
+        want_launches = n_apply_fixed + n_apply * -(-count // sc._chunk())
         per = dt / count
         emit({'phase': 'tn', 'part': 'workload', 'plan': TN_PLANS[0],
               'n_slices': sc.nslices, 'timed_slices': count, 'seconds': dt,
@@ -2284,10 +2424,53 @@ def phase_tn(out, name):
               'fp32_peak_tflops': peaks(name)[1] / 1e12,
               'of_bound': costs['bound_ms'] / (per * 1e3),
               'peak_gib': peak, 'steps_run': steps['n'],
+              'apply_steps_batched': n_apply,
+              'apply_steps_fixed': n_apply_fixed, 'launches': launches,
+              'launches_expected': want_launches,
               'projected_full_s': per * sc.nslices,
               'log2_largest': float(np.log2(cost.max_size)),
               **costs, 'card': card}, out)
         check(np.isfinite(amp).all(), "tn: non-finite partial sum")
+        check(launches == {'tn_apply': want_launches, 'tn_apply_plain': 0},
+              f"tn: tn_apply launches {launches}, want {want_launches} "
+              f"({n_apply_fixed} once a call + {n_apply} x "
+              f"{-(-count // sc._chunk())} chunks) and no plain call")
+
+        # Each tn_apply class of the plan at its widths, against the plain
+        # version and timed beside torch.tensordot.
+        gen = torch.Generator(device='cuda')
+        gen.manual_seed(SEED)
+        rows = {}
+        for key, (n_steps_cls, (tstep, inplace)) in sorted(
+                tn_apply_classes(sc).items()):
+            r = tn_apply_case(tstep, inplace, name, gen)
+            rows[key] = r
+            emit({'phase': 'tn', 'part': 'tn_apply', 'plan': TN_PLANS[0],
+                  'steps': n_steps_cls, **r, 'card': card}, out)
+        r = rows[TN_APPLY_SUMMARY]
+        src, replaces = KERNEL_INFO['tn_apply']
+        summary.append({'name': 'tn_apply', 'route': 'cuda', 'source': src,
+                        'replaces': replaces,
+                        'launches': launches['tn_apply'],
+                        'max_abs_err': max(x['max_abs_err']
+                                           for x in rows.values()),
+                        'ms': r['ms'], 'plain_ms': r['plain_ms'],
+                        'bound_ms': r['bound_ms'], 'bound_by': r['bound_by'],
+                        'library_ms': r['library_ms']})
+
+        # Whole slices, the kernel route against the plain route, in turns.
+        rng_t = (3, 3 + TN_TURN_SLICES)
+        sums, ms = tn_turns(sc, rng_t)
+        ref = float(np.abs(sums['plain']).max())
+        d = float(np.abs(sums['kernel'] - sums['plain']).max()) / ref
+        emit({'phase': 'tn', 'part': 'routes', 'plan': TN_PLANS[0],
+              'slices': list(rng_t), 'ms_per_slice': ms,
+              'kernel_ms_per_slice': float(np.mean(ms['kernel'])),
+              'plain_ms_per_slice': float(np.mean(ms['plain'])),
+              'bound_ms': costs['bound_ms'], 'kernel_vs_plain': d,
+              'card': card}, out)
+        check(d <= TOL, f"tn: the kernel and plain routes differ by {d:.3g}")
+
         emit({'phase': 'tn', 'part': 'profile', 'plan': TN_PLANS[0],
               'profile': tn_profile(sc, (3, 3 + TN_PROFILE_SLICES)),
               'card': card}, out)
@@ -2336,8 +2519,15 @@ def phase_tn(out, name):
                                        net.tensors, oo)
         costs = tn_costs(sc, name)
         timed_slices(sc, (0, 1))                      # warm
+        tk.reset_counts()
         amp, dt, peak = timed_slices(sc, (1, 2))
+        launches = tk.counts()
+        # a call of three slices: what a slice adds beyond the call's own
+        # work (leaf uploads, the slice-invariant steps)
+        _, dt3, _ = timed_slices(sc, (1, 4))
         emit({'phase': 'tn', 'part': 'workload', 'plan': TN_PLANS[1],
+              'launches': launches, 'marginal_ms_per_slice':
+                  (dt3 - dt) / 2 * 1e3,
               'n_slices': sc.nslices, 'timed_slices': 1, 's_per_slice': dt,
               'ms_per_slice': dt * 1e3,
               'tflops': 8 * costs['macs_per_slice'] / dt / 1e12,
@@ -2346,12 +2536,15 @@ def phase_tn(out, name):
               'log2_largest': float(np.log2(cost.max_size)),
               **costs, 'card': card}, out)
         check(np.isfinite(amp).all(), "tn: non-finite d20 slice")
+        emit({'phase': 'tn', 'part': 'profile', 'plan': TN_PLANS[1],
+              'profile': tn_profile(sc, (1, 2)), 'card': card}, out)
         del sc, net, tree
         torch.cuda.empty_cache()
     finally:
         contract._step = step
         contract.SlicedContractor.contract_np = contract_np
     emit({'phase': 'tn', 'ok': True, 'card': card}, out)
+    return summary
 
 
 def main(argv=None):
@@ -2400,7 +2593,8 @@ def main(argv=None):
         for phase in PHASES:
             if phase in phases:
                 summary[phase] = runs[phase]() or []
-        emit({'kernels': [k for phase in ('main_path', 'paths', 'probes')
+        emit({'kernels': [k for phase in ('main_path', 'paths', 'probes',
+                                          'tn')
                           for k in summary.get(phase, [])]}, out)
         print(card_power(), flush=True)
         # count: the one card the run used (device 0)

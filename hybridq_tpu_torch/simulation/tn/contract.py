@@ -14,8 +14,13 @@ replaces cotengra's ``SlicedContractor`` (reference
     torch device.  A chunk of slices runs as a leading batch dimension
     of every intermediate that depends on the slice; a subtree whose
     leaves carry no sliced index is contracted once per call and enters
-    the batched steps unbatched.  Matmuls run with TF32 off, whatever
-    the caller's flags.
+    the batched steps unbatched.  Each node's legs stay in the order its
+    step left them (``schedule``): a step whose smaller operand sums and
+    brings at most 7 legs is one ``tn_kernels.tn_apply`` (on a card, the
+    kernel of ``csrc/tn_apply.cu``, which reads the legs where they lie),
+    the others a permute and ``torch.matmul`` (``torch.einsum`` where a
+    hyperedge is kept).  Matmuls run with TF32 off, whatever the
+    caller's flags.
 
 Slice id ``s`` selects bit ``j`` of ``s`` for ``sliced[j]`` (the sliced
 indices sorted by name), as in the JAX package, so ``slice_range``
@@ -25,6 +30,7 @@ with it.
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, FrozenSet, List, Sequence, Tuple
 
 import numpy as np
@@ -32,12 +38,15 @@ import torch
 
 from hybridq_tpu_torch.simulation._device import (full_precision_matmul,
                                                   resolve_device)
+from hybridq_tpu_torch.simulation.tn import tn_kernels
 from hybridq_tpu_torch.simulation.tn.network import Tensor
 from hybridq_tpu_torch.simulation.tn.path import ContractionTree
 
 __all__ = ['ContractionPlan', 'SlicedContractor']
 
 _MAX_LABELS = 52        # torch.einsum's sublist labels are 0..51
+_MAX_COPY_DIMS = 25     # dimensions of one CUDA copy (OffsetCalculator)
+_ROW_BLOCK = 4096       # chunks whose leaf rows are computed in one go
 
 
 class ContractionPlan:
@@ -138,6 +147,7 @@ class SlicedContractor:
                 d = d.reshape(want)
             self.datas.append(d)
         self.nslices = plan.nslices
+        self._schedule = None
 
     def _range(self, slice_range):
         """Clamp a ``(start, stop)`` request to the valid slice ids:
@@ -194,45 +204,93 @@ class SlicedContractor:
         return chunk
 
     def schedule(self):
-        """``(batched, steps)``: ``batched[v]`` is True when node ``v``
-        depends on the slice id (a leaf under it carries a sliced
-        index), and then its tensor has a leading slice-batch axis; each
-        step is ``(v, a, b, op)`` with ``op`` either ``('tensordot',
-        a_axes, b_axes, move)`` (``move``: the axis of the result that
-        holds the batch and goes to the front, or None) or ``('einsum',
-        la, lb, lo)``, integer sublist labels with the batch as one
-        more label."""
+        """``(batched, steps)``, computed once per contractor.
+        ``batched[v]`` is True when node ``v`` depends on the slice id (a
+        leaf under it carries a sliced index), and then its tensor has a
+        leading slice-batch axis.  Each step is ``(v, a, b, op)``; ``op``
+        reads the children's legs in the order their tensors really hold
+        them (``self.order``, tracked from the leaves as JAX's
+        ``_flat_schedule`` tracks it, so that no step permutes to restore
+        ``plan.eff``):
+
+          * ``('apply', step, a_is_x, inplace)``: the smaller operand
+            sums ``s <= 7`` legs of the larger and brings ``f <= 7`` new
+            ones, no hyperedge, every leg of size 2: one
+            ``tn_kernels.tn_apply`` with the ``TnStep`` built here, in
+            place where the step is square and the larger operand is
+            batched (that tensor is then needed by no other step);
+          * ``('matmul', perm_a, perm_b, (m, k, n), shape, xb, yb)``: a
+            large-by-large product: each child permuted to (batch, free
+            legs, summed legs) and (batch, summed legs, free legs), one
+            ``torch.matmul``, the result (batch, free legs of ``a``, free
+            legs of ``b``);
+          * ``('einsum', la, lb, lo)``: a retained hyperedge; integer
+            sublist labels with the batch as one more label.
+
+        ``self.root_perm`` takes the root's legs to ``output_order``."""
+        if self._schedule is not None:
+            return self._schedule
         plan = self.plan
+        size = plan.tree.size_dict
         batched = {v: bool(plan.leaf_slices[v])
                    for v in range(plan.tree.n_leaves)}
+        order = {v: plan.eff[v] for v in range(plan.tree.n_leaves)}
         steps = []
-        for v, a, b, a_axes, b_axes, spec in plan.steps:
+        for v, a, b, _, _, _ in plan.steps:
             xb, yb = batched[a], batched[b]
             batched[v] = xb or yb
-            if spec is None and not (xb and yb):
-                move = len(plan.eff[a]) - len(a_axes) if yb else None
+            oa, ob = order[a], order[b]
+            keep = set(plan.eff[v])
+            shared = [i for i in oa if i in ob]
+            summed = [i for i in shared if i not in keep]
+            hyper = tuple(i for i in shared if i in keep)
+            free_a = tuple(i for i in oa if i not in shared)
+            free_b = tuple(i for i in ob if i not in shared)
+            a_is_x = (len(oa), xb) >= (len(ob), yb)
+            ox, oo = (oa, ob) if a_is_x else (ob, oa)
+            s, f = len(summed), len(oo) - len(summed)
+            if not hyper and s <= tn_kernels.MAX_LEGS and \
+                    f <= tn_kernels.MAX_LEGS and \
+                    all(size[i] == 2 for i in ox + oo):
+                x_batched = xb if a_is_x else yb
+                step, order[v] = tn_kernels.TnStep.from_legs(
+                    ox, oo, summed, x_batched, yb if a_is_x else xb)
+                steps.append((v, a, b, ('apply', step, a_is_x,
+                                        f == s and x_batched)))
+            elif not hyper:
+                order[v] = free_a + free_b
+                summed = tuple(summed)
                 steps.append((v, a, b, (
-                    'tensordot', tuple(i + xb for i in a_axes),
-                    tuple(i + yb for i in b_axes), move)))
-                continue
-            ea, eb = plan.eff[a], plan.eff[b]
-            if spec is None:
-                labels = {i: k for k, i in enumerate(
-                    dict.fromkeys(ea + eb))}
-                spec = (tuple(labels[i] for i in ea),
-                        tuple(labels[i] for i in eb),
-                        tuple(labels[i] for i in plan.eff[v]))
-            # the slice batch takes the next label
-            s = len(set(spec[0]) | set(spec[1]))
-            if s + batched[v] > _MAX_LABELS:
-                raise ValueError(
-                    f"step {v} needs {s + 1} einsum labels; torch.einsum "
-                    f"takes at most {_MAX_LABELS}")
-            batch = (s,)
-            steps.append((v, a, b, (
-                'einsum', batch * xb + spec[0], batch * yb + spec[1],
-                batch * batched[v] + spec[2])))
-        return batched, steps
+                    'matmul',
+                    tuple(range(xb)) + tuple(oa.index(i) + xb
+                                             for i in free_a + summed),
+                    tuple(range(yb)) + tuple(ob.index(i) + yb
+                                             for i in summed + free_b),
+                    tuple(int(np.prod([size[i] for i in legs],
+                                      dtype=np.int64))
+                          for legs in (free_a, summed, free_b)),
+                    tuple(size[i] for i in order[v]), xb, yb)))
+            else:
+                order[v] = hyper + free_a + free_b
+                labels = {i: k for k, i in enumerate(dict.fromkeys(oa + ob))}
+                spec = (tuple(labels[i] for i in oa),
+                        tuple(labels[i] for i in ob),
+                        tuple(labels[i] for i in order[v]))
+                # the slice batch takes the next label
+                n_labels = len(labels)
+                if n_labels + batched[v] > _MAX_LABELS:
+                    raise ValueError(
+                        f"step {v} needs {n_labels + 1} einsum labels; "
+                        f"torch.einsum takes at most {_MAX_LABELS}")
+                batch = (n_labels,)
+                steps.append((v, a, b, (
+                    'einsum', batch * xb + spec[0], batch * yb + spec[1],
+                    batch * batched[v] + spec[2])))
+        self.order = order
+        root = order[plan.root]
+        self.root_perm = tuple(root.index(i) for i in self.output_order)
+        self._schedule = batched, steps
+        return self._schedule
 
     def contract_torch(self, device=None,
                        slice_range=None) -> np.ndarray:
@@ -242,7 +300,9 @@ class SlicedContractor:
 
         Chunks of ``_chunk()`` slices (2^25 elements over the widest
         intermediate, as the JAX executor sizes its vmap) run as one
-        batch.  Each child is freed once its parent is made.
+        batch.  Each child is freed once its parent is made; a square
+        ``'apply'`` step on a batched operand writes over it.  The root is
+        permuted to ``output_order`` once, after the sum.
         """
         device = resolve_device(device, 'contract_torch()')
         start, stop = self._range(slice_range)
@@ -259,8 +319,10 @@ class SlicedContractor:
                                                copy=False), device=device)
                       for d in self.datas]
             # Sliced leaves: sliced axes first, flattened to one axis of
-            # 2^s rows that the chunk's ids index.
-            gathers = {}
+            # 2^s rows that the chunk's ids index; row r of leaf l for
+            # slice id i is sum_k ((i >> shifts[l, k]) & 1) * weights[l, k].
+            gathers, shifts, weights = {}, [], []
+            width = max([len(plan.leaf_slices[v]) for v in range(n)] + [1])
             for v in range(n):
                 sl = plan.leaf_slices[v]
                 if not sl:
@@ -270,12 +332,14 @@ class SlicedContractor:
                 d = leaves[v].permute(axes + rest).reshape(
                     (2 ** len(axes),) +
                     tuple(leaves[v].shape[p] for p in rest))
-                shifts = torch.tensor([j for _, j in sl], device=device)
-                weights = torch.tensor(
-                    [2 ** (len(sl) - 1 - k) for k in range(len(sl))],
-                    device=device)
-                gathers[v] = (d.contiguous(), shifts, weights)
+                gathers[v] = d.contiguous()
+                pad = [0] * (width - len(sl))
+                shifts.append([j for _, j in sl] + pad)
+                weights.append([2 ** (len(sl) - 1 - k)
+                                for k in range(len(sl))] + pad)
                 leaves[v] = None
+            shifts = torch.tensor(shifts, device=device)[:, None]
+            weights = torch.tensor(weights, device=device)[:, None]
 
             # Slice-invariant subtrees, once per call: what stays in
             # ``fixed`` is the root or a child of a batched step.
@@ -290,25 +354,27 @@ class SlicedContractor:
             else:
                 acc = None
                 chunk = self._chunk()
-                for s0 in range(start, stop, chunk):
-                    sids = torch.arange(s0, min(s0 + chunk, stop),
+                block = chunk * _ROW_BLOCK
+                for b0 in range(start, stop, block):
+                    # every sliced leaf's rows for a block of chunks at once
+                    sids = torch.arange(b0, min(b0 + block, stop),
                                         device=device)
-                    vals = {}
-                    for v, (d, shifts, weights) in gathers.items():
-                        idx = (((sids[:, None] >> shifts) & 1) *
-                               weights).sum(1)
-                        vals[v] = d.index_select(0, idx)
-                    for v, a, b, op in steps:
-                        if not batched[v]:
-                            continue
-                        x = vals.pop(a) if batched[a] else fixed[a]
-                        y = vals.pop(b) if batched[b] else fixed[b]
-                        vals[v] = _step(x, y, op)
-                        del x, y
-                    part = vals.pop(plan.root).sum(0)
-                    acc = part if acc is None else acc + part
-                    del part
-            out = acc.permute(self.perm) if self.perm else acc
+                    rows = (((sids[:, None] >> shifts) & 1) *
+                            weights).sum(-1)
+                    for c0 in range(0, len(sids), chunk):
+                        vals = {v: d.index_select(0, rows[l, c0:c0 + chunk])
+                                for l, (v, d) in enumerate(gathers.items())}
+                        for v, a, b, op in steps:
+                            if not batched[v]:
+                                continue
+                            x = vals.pop(a) if batched[a] else fixed[a]
+                            y = vals.pop(b) if batched[b] else fixed[b]
+                            vals[v] = _step(x, y, op)
+                            del x, y
+                        part = vals.pop(plan.root).sum(0)
+                        acc = part if acc is None else acc + part
+                        del part
+            out = acc.permute(self.root_perm) if self.root_perm else acc
             return out.cpu().numpy().astype(self.complex_type, copy=False)
 
     def contract(self, backend='torch', devices=None, device=None,
@@ -344,10 +410,34 @@ class SlicedContractor:
 
 
 def _step(x, y, op):
-    """One pairwise contraction of ``SlicedContractor.schedule``."""
-    if op[0] == 'einsum':
+    """One pairwise contraction of ``SlicedContractor.schedule``: ``x`` is
+    child ``a``'s tensor, ``y`` child ``b``'s."""
+    kind = op[0]
+    if kind == 'apply':
+        _, step, a_is_x, inplace = op
+        return tn_kernels.tn_apply(*((x, y) if a_is_x else (y, x)), step,
+                                   inplace)
+    if kind == 'einsum':
         _, la, lb, lo = op
-        return torch.einsum(x, list(la), y, list(lb), list(lo))
-    _, a_axes, b_axes, move = op
-    z = torch.tensordot(x, y, dims=(list(a_axes), list(b_axes)))
-    return z if move is None else z.movedim(move, 0)
+        return torch.einsum(x, list(la), y, list(lb), list(lo)).contiguous()
+    _, pa, pb, (m, k, n), shape, xb, yb = op
+    z = torch.matmul(_permuted(x, pa).reshape((-1,) * xb + (m, k)),
+                     _permuted(y, pb).reshape((-1,) * yb + (k, n)))
+    return z.reshape((-1,) * (xb or yb) + shape)
+
+
+def _permuted(t, perm):
+    """``t.permute(perm)``, contiguous.  A CUDA copy takes at most 25
+    dimensions that do not merge (a slice batch and 26 legs in a tracked
+    order can have 27), so past 25 the copy goes in pieces, one for each
+    value of the leading axes of the result."""
+    if list(perm) == list(range(t.dim())):
+        return t
+    p = t.permute(perm)
+    lead = t.dim() - _MAX_COPY_DIMS
+    if lead <= 0:
+        return p.contiguous()
+    out = torch.empty(p.shape, dtype=t.dtype, device=t.device)
+    for idx in itertools.product(*(range(d) for d in p.shape[:lead])):
+        out[idx].copy_(p[idx])
+    return out
