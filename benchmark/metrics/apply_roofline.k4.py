@@ -1,0 +1,8 @@
+"""Percent of the bytes roofline of the traced calls' ``apply_bits``
+launches of 4-qubit blocks (``hqbench.spans.apply_roofline``)."""
+
+from hqbench.spans import apply_roofline
+
+
+def read(record):
+    return apply_roofline(record, 4)

@@ -1538,7 +1538,7 @@ def trace_breakdown(trace_dir, wall_s):
     dev = [e for e in events if e.get('ph') == 'X' and e.get('cat') in
            ('kernel', 'gpu_memcpy', 'gpu_memset')]
     timed = [e for e in events if e.get('ph') == 'X']
-    (span,) = [e['dur'] / 1e6 for e in timed if e['name'] == 'simulate'
+    (span,) = [e['dur'] / 1e6 for e in timed if e['name'] == 'hq.simulate'
                and e.get('cat') == 'user_annotation']
     spans = sorted((e['ts'], e['ts'] + e['dur']) for e in dev)
     busy, end = 0.0, None

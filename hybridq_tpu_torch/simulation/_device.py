@@ -8,7 +8,9 @@ import time
 
 import torch
 
-__all__ = ['resolve_device', 'full_precision_matmul', 'profiled']
+__all__ = ['resolve_device', 'full_precision_matmul', 'profiled', 'span']
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def resolve_device(device, what: str = 'simulate()') -> torch.device:
@@ -39,16 +41,29 @@ def full_precision_matmul():
 def profiled(directory, device):
     """Run the block under ``torch.profiler`` (host activity, and the
     card's when ``device`` is a CUDA device) and write its Chrome trace
-    into ``directory``, which is created if needed; the block is one
-    span named ``simulate`` in the trace."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    into ``directory``, which is created if needed."""
+    from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if device is not None and torch.device(device).type == 'cuda':
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(directory, exist_ok=True)
     with profile(activities=activities) as prof:
-        with record_function('simulate'):
-            yield
+        yield
     prof.export_chrome_trace(os.path.join(
         str(directory), f'simulate-{os.getpid()}-{time.time_ns()}.json'))
+
+
+def span(name: str, **meta):
+    """The program's span ``name``: a ``torch.profiler.record_function``
+    range while a profiler records, so that it lands in the profiler's
+    trace on the clock of the device's events, and one shared no-op
+    context otherwise (a flag read; an idle ``record_function`` costs
+    tens of microseconds).  Each ``meta`` item is appended to the name as
+    `` key=value``, since a trace keeps only a span's name and times."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    from torch.profiler import record_function
+
+    return record_function(name + ''.join(f' {k}={v}'
+                                          for k, v in meta.items()))

@@ -41,6 +41,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from hybridq_tpu_torch.simulation._device import span
+
 __all__ = ['fused_meta', 'swap_meta', 'apply_bits', 'apply_fused',
            'apply_swap', 'apply_factored', 'apply_bits_plain',
            'apply_fused_plain', 'apply_swap_plain', 'apply_factored_plain',
@@ -302,10 +304,11 @@ def apply_bits(state: torch.Tensor, U, bits: Sequence[int]) -> torch.Tensor:
     n = _n_of(state)
     bits = [int(b) for b in bits]
     _check_bits(n, bits)
-    if not _kernel_device(state):
-        return apply_bits_plain(state, U, bits)
-    U = _operand(U, len(bits), state.device)
-    _launch(*_halves(state, n), U, n, bits, [], [])
+    with span('hq.apply_bits', k=len(bits), lo=min(bits), n=n):
+        if not _kernel_device(state):
+            return apply_bits_plain(state, U, bits)
+        U = _operand(U, len(bits), state.device)
+        _launch(*_halves(state, n), U, n, bits, [], [])
     bits_launches += 1
     return state
 

@@ -28,6 +28,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from hybridq_tpu_torch.simulation._device import span
+
 __all__ = ['IndexedEvolver', 'pair_matrix_gates', 'straight_cost']
 
 
@@ -254,12 +256,13 @@ class IndexedEvolver:
         for i, U in enumerate(mats):
             by_dim.setdefault(np.shape(U)[0], []).append(i)
         out = [None] * len(mats)
-        for idxs in by_dim.values():
-            stack = torch.as_tensor(
-                np.stack([np.asarray(mats[i], np.complex64) for i in idxs]),
-                device=self.device)
-            for j, i in enumerate(idxs):
-                out[i] = stack[j]
+        with span('hq.preload'):
+            for idxs in by_dim.values():
+                stack = torch.as_tensor(
+                    np.stack([np.asarray(mats[i], np.complex64)
+                              for i in idxs]), device=self.device)
+                for j, i in enumerate(idxs):
+                    out[i] = stack[j]
         return out
 
     def apply_gates(self, state, gates, qubit_index):

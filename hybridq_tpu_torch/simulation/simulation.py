@@ -41,7 +41,7 @@ import torch
 
 from hybridq_tpu_torch.circuit import Circuit, utils
 from hybridq_tpu_torch.gate import FunctionalGate, Gate, StochasticGate
-from hybridq_tpu_torch.simulation._device import resolve_device
+from hybridq_tpu_torch.simulation._device import resolve_device, span
 
 __all__ = ['simulate', 'expectation_value']
 
@@ -94,10 +94,11 @@ def _preprocess_circuit(circuit, initial_state, final_state, simplify,
     if remove_id_gates:
         circuit = Circuit(g for g in circuit if g.name != 'I')
     if simplify:
-        circuit = utils.simplify(
-            circuit, remove_id_gates=remove_id_gates, atol=atol,
-            verbose=verbose,
-            **(simplify if isinstance(simplify, dict) else {}))
+        with span('hq.simplify'):
+            circuit = utils.simplify(
+                circuit, remove_id_gates=remove_id_gates, atol=atol,
+                verbose=verbose,
+                **(simplify if isinstance(simplify, dict) else {}))
     if circuit and circuit.all_qubits != qubits:
         raise ValueError("Active qubits have changed after simplification. "
                          "Forcing stop.")
@@ -117,7 +118,10 @@ def simulate(circuit, initial_state=None, final_state=None,
     or ``(net, (info, tree))`` with ``tensor_only=True``.  With
     ``profile_dir=d`` the whole call runs under ``torch.profiler`` (the
     card's activity too on a CUDA device) and writes a Chrome trace into
-    ``d``, as the JAX package writes a ``jax.profiler`` trace there."""
+    ``d``, as the JAX package writes a ``jax.profiler`` trace there.
+    While a profiler records, the call is the span ``hq.simulate`` and
+    its parts are spans inside it (``_device.span``; PERF.md lists
+    them)."""
     kwargs.setdefault('allow_sampling', False)
     kwargs.setdefault('sampling_seed', None)
 
@@ -146,35 +150,39 @@ def simulate(circuit, initial_state=None, final_state=None,
                             use_mpi=use_mpi, atol=atol, verbose=verbose,
                             device=device, **kwargs)
 
-    from hybridq_tpu_torch.simulation.tn.network import TensorNetwork
-    if not isinstance(circuit, TensorNetwork):
-        circuit, qubits, initial_state, final_state = _preprocess_circuit(
-            circuit, initial_state, final_state, simplify,
-            remove_id_gates, atol, verbose, kwargs['allow_sampling'],
-            kwargs['sampling_seed'])
-    elif evolution:
-        raise ValueError("a TensorNetwork needs optimize=(info, tree) or "
-                         "(info, ContractionPlan), not an evolution engine")
+    with span('hq.simulate'):
+        from hybridq_tpu_torch.simulation.tn.network import TensorNetwork
+        if not isinstance(circuit, TensorNetwork):
+            with span('hq.preprocess'):
+                circuit, qubits, initial_state, final_state = \
+                    _preprocess_circuit(
+                        circuit, initial_state, final_state, simplify,
+                        remove_id_gates, atol, verbose,
+                        kwargs['allow_sampling'], kwargs['sampling_seed'])
+        elif evolution:
+            raise ValueError("a TensorNetwork needs optimize=(info, tree) "
+                             "or (info, ContractionPlan), not an evolution "
+                             "engine")
 
-    if not evolution:
-        # Tensor-network contraction (host planning, contraction on
-        # ``device``; ``backend='numpy'`` runs the plain executor).
-        from hybridq_tpu_torch.simulation.tn import simulate_tn
-        kwargs.setdefault('compress', 2)
-        return simulate_tn(circuit, initial_state, final_state, optimize,
-                           backend, complex_type, tensor_only, verbose,
-                           device=device, **kwargs)
+        if not evolution:
+            # Tensor-network contraction (host planning, contraction on
+            # ``device``; ``backend='numpy'`` runs the plain executor).
+            from hybridq_tpu_torch.simulation.tn import simulate_tn
+            kwargs.setdefault('compress', 2)
+            return simulate_tn(circuit, initial_state, final_state, optimize,
+                               backend, complex_type, tensor_only, verbose,
+                               device=device, **kwargs)
 
-    sub = '-'.join(optimize.split('-')[1:]) or 'tpu'
-    if sub == 'hybridq':  # reference alias for its native engine
-        sub = 'tpu'
-    kwargs.setdefault('compress', 4)
-    kwargs.setdefault('max_largest_intermediate', 2**30)
-    kwargs.setdefault('return_info', False)
-    kwargs.setdefault('block_until_ready', True)
-    kwargs.setdefault('return_numpy_array', True)
-    return _simulate_evolution(circuit, qubits, initial_state, final_state,
-                               sub, complex_type, device, **kwargs)
+        sub = '-'.join(optimize.split('-')[1:]) or 'tpu'
+        if sub == 'hybridq':  # reference alias for its native engine
+            sub = 'tpu'
+        kwargs.setdefault('compress', 4)
+        kwargs.setdefault('max_largest_intermediate', 2**30)
+        kwargs.setdefault('return_info', False)
+        kwargs.setdefault('block_until_ready', True)
+        kwargs.setdefault('return_numpy_array', True)
+        return _simulate_evolution(circuit, qubits, initial_state, final_state,
+                                   sub, complex_type, device, **kwargs)
 
 
 def _segment_blocks(blocks):
@@ -232,9 +240,10 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
     compress_kw = ({k: v for k, v in compress_opt.items()
                     if k != 'max_n_qubits'}
                    if isinstance(compress_opt, dict) else {})
-    blocks = utils.compress(circuit, max_k,
-                            skip_compression=[FunctionalGate],
-                            **compress_kw)
+    with span('hq.compress'):
+        blocks = utils.compress(circuit, max_k,
+                                skip_compression=[FunctionalGate],
+                                **compress_kw)
 
     engine = _engine(sub, n_qubits, complex_type, device, kwargs)
     info['engine'] = engine
@@ -244,7 +253,8 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
     psi = evolve(blocks, qubits, qubit_index, initial_state, complex_type,
                  device, kwargs)
     if kwargs['block_until_ready'] and device.type == 'cuda':
-        torch.cuda.synchronize(device)
+        with span('hq.sync'):
+            torch.cuda.synchronize(device)
     info['runtime (s)'] = _time_mod.time() - t0
 
     if kwargs['return_numpy_array'] and isinstance(psi, torch.Tensor):
@@ -399,11 +409,12 @@ def _block_items(payload, complex_type, qubit_index):
     """``[(U, dense qubit indices), ...]`` of a run of compressed
     blocks."""
     items = []
-    for b in payload:
-        g = utils.to_matrix_gate(b, complex_type=complex_type) \
-            if len(b) > 1 else b[0]
-        items.append((np.ascontiguousarray(g.matrix()),
-                      tuple(qubit_index[q] for q in g.qubits)))
+    with span('hq.block_matrices'):
+        for b in payload:
+            g = utils.to_matrix_gate(b, complex_type=complex_type) \
+                if len(b) > 1 else b[0]
+            items.append((np.ascontiguousarray(g.matrix()),
+                          tuple(qubit_index[q] for q in g.qubits)))
     return items
 
 
@@ -426,9 +437,9 @@ def _evolve_fused(blocks, qubits, qubit_index, initial_state,
 
     for seg, (kind, payload) in enumerate(_segment_blocks(blocks)):
         if kind == 'mat':
-            items = pair_fused_gates(
-                _block_items(payload, complex_type, qubit_index), n_qubits,
-                MapSim.of(ev))
+            items = _block_items(payload, complex_type, qubit_index)
+            with span('hq.pair'):
+                items = pair_fused_gates(items, n_qubits, MapSim.of(ev))
             # The key names the segment too: after a flush the map is
             # canonical again, and block i of a later segment must not
             # hit block i of an earlier one in the prep memo.
@@ -456,16 +467,18 @@ def _evolve_indexed(blocks, qubits, qubit_index, initial_state,
     ev = IndexedEvolver(n_qubits,
                         precision=kwargs.get('matmul_precision', 'highest'),
                         device=device)
-    if isinstance(initial_state, str):
-        state = ev.prepare_state(initial_state)
-    else:
-        state = ev.pack(np.asarray(initial_state))
+    with span('hq.prepare_state'):
+        if isinstance(initial_state, str):
+            state = ev.prepare_state(initial_state)
+        else:
+            state = ev.pack(np.asarray(initial_state))
     del initial_state
 
     for kind, payload in _segment_blocks(blocks):
         if kind == 'mat':
-            items = pair_matrix_gates(
-                _block_items(payload, complex_type, qubit_index), n_qubits)
+            items = _block_items(payload, complex_type, qubit_index)
+            with span('hq.pair'):
+                items = pair_matrix_gates(items, n_qubits)
             # one stacked upload per block size, then one launch a block
             for U, (_, qs) in zip(ev.preload([U for U, _ in items]), items):
                 state = ev.apply_gate(state, U, qs)
@@ -476,8 +489,10 @@ def _evolve_indexed(blocks, qubits, qubit_index, initial_state,
             state = ev.pack(psi)
             del psi
     if kwargs['return_numpy_array']:
-        return ev.gather_host(state, complex_type)
-    return ev.gather(state, complex_type)
+        with span('hq.gather_host'):
+            return ev.gather_host(state, complex_type)
+    with span('hq.gather'):
+        return ev.gather(state, complex_type)
 
 
 def expectation_value(state, op, qubits_order, complex_type='complex64',

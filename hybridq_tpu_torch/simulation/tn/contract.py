@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from hybridq_tpu_torch.simulation._device import (full_precision_matmul,
-                                                  resolve_device)
+                                                  resolve_device, span)
 from hybridq_tpu_torch.simulation.tn import tn_kernels
 from hybridq_tpu_torch.simulation.tn.network import Tensor
 from hybridq_tpu_torch.simulation.tn.path import ContractionTree
@@ -311,43 +311,49 @@ class SlicedContractor:
         plan = self.plan
         if any(plan.tree.size_dict[i] != 2 for i in plan.sliced):
             raise ValueError("sliced indices must have dimension 2")
-        batched, steps = self.schedule()
+        with span('hq.tn.schedule'):
+            batched, steps = self.schedule()
         n = plan.tree.n_leaves
 
         with full_precision_matmul():
-            leaves = [torch.as_tensor(d.astype(self.complex_type,
-                                               copy=False), device=device)
-                      for d in self.datas]
-            # Sliced leaves: sliced axes first, flattened to one axis of
-            # 2^s rows that the chunk's ids index; row r of leaf l for
-            # slice id i is sum_k ((i >> shifts[l, k]) & 1) * weights[l, k].
-            gathers, shifts, weights = {}, [], []
-            width = max([len(plan.leaf_slices[v]) for v in range(n)] + [1])
-            for v in range(n):
-                sl = plan.leaf_slices[v]
-                if not sl:
-                    continue
-                axes = [pos for pos, _ in sl]
-                rest = [p for p in range(leaves[v].dim()) if p not in axes]
-                d = leaves[v].permute(axes + rest).reshape(
-                    (2 ** len(axes),) +
-                    tuple(leaves[v].shape[p] for p in rest))
-                gathers[v] = d.contiguous()
-                pad = [0] * (width - len(sl))
-                shifts.append([j for _, j in sl] + pad)
-                weights.append([2 ** (len(sl) - 1 - k)
-                                for k in range(len(sl))] + pad)
-                leaves[v] = None
-            shifts = torch.tensor(shifts, device=device)[:, None]
-            weights = torch.tensor(weights, device=device)[:, None]
+            with span('hq.tn.leaves'):
+                leaves = [torch.as_tensor(
+                    d.astype(self.complex_type, copy=False), device=device)
+                    for d in self.datas]
+                # Sliced leaves: sliced axes first, flattened to one axis
+                # of 2^s rows that the chunk's ids index; row r of leaf l
+                # for slice id i is
+                # sum_k ((i >> shifts[l, k]) & 1) * weights[l, k].
+                gathers, shifts, weights = {}, [], []
+                width = max([len(plan.leaf_slices[v])
+                             for v in range(n)] + [1])
+                for v in range(n):
+                    sl = plan.leaf_slices[v]
+                    if not sl:
+                        continue
+                    axes = [pos for pos, _ in sl]
+                    rest = [p for p in range(leaves[v].dim())
+                            if p not in axes]
+                    d = leaves[v].permute(axes + rest).reshape(
+                        (2 ** len(axes),) +
+                        tuple(leaves[v].shape[p] for p in rest))
+                    gathers[v] = d.contiguous()
+                    pad = [0] * (width - len(sl))
+                    shifts.append([j for _, j in sl] + pad)
+                    weights.append([2 ** (len(sl) - 1 - k)
+                                    for k in range(len(sl))] + pad)
+                    leaves[v] = None
+                shifts = torch.tensor(shifts, device=device)[:, None]
+                weights = torch.tensor(weights, device=device)[:, None]
 
             # Slice-invariant subtrees, once per call: what stays in
             # ``fixed`` is the root or a child of a batched step.
             fixed = {v: leaves[v] for v in range(n) if not batched[v]}
             del leaves
-            for v, a, b, op in steps:
-                if not batched[v]:
-                    fixed[v] = _step(fixed.pop(a), fixed.pop(b), op)
+            with span('hq.tn.fixed'):
+                for v, a, b, op in steps:
+                    if not batched[v]:
+                        fixed[v] = _step(fixed.pop(a), fixed.pop(b), op)
 
             if not batched[plan.root]:   # no sliced index: one slice
                 acc = fixed[plan.root] * (stop - start)
@@ -362,20 +368,26 @@ class SlicedContractor:
                     rows = (((sids[:, None] >> shifts) & 1) *
                             weights).sum(-1)
                     for c0 in range(0, len(sids), chunk):
-                        vals = {v: d.index_select(0, rows[l, c0:c0 + chunk])
+                        with span('hq.tn.chunk',
+                                  n=min(chunk, len(sids) - c0)):
+                            vals = {v: d.index_select(
+                                0, rows[l, c0:c0 + chunk])
                                 for l, (v, d) in enumerate(gathers.items())}
-                        for v, a, b, op in steps:
-                            if not batched[v]:
-                                continue
-                            x = vals.pop(a) if batched[a] else fixed[a]
-                            y = vals.pop(b) if batched[b] else fixed[b]
-                            vals[v] = _step(x, y, op)
-                            del x, y
-                        part = vals.pop(plan.root).sum(0)
-                        acc = part if acc is None else acc + part
-                        del part
-            out = acc.permute(self.root_perm) if self.root_perm else acc
-            return out.cpu().numpy().astype(self.complex_type, copy=False)
+                            for v, a, b, op in steps:
+                                if not batched[v]:
+                                    continue
+                                x = vals.pop(a) if batched[a] else fixed[a]
+                                y = vals.pop(b) if batched[b] else fixed[b]
+                                vals[v] = _step(x, y, op)
+                                del x, y
+                            part = vals.pop(plan.root).sum(0)
+                            acc = part if acc is None else acc + part
+                            del part
+            with span('hq.tn.result'):
+                out = acc.permute(self.root_perm) if self.root_perm \
+                    else acc
+                return out.cpu().numpy().astype(self.complex_type,
+                                                copy=False)
 
     def contract(self, backend='torch', devices=None, device=None,
                  verbose: bool = False, slice_range=None) -> np.ndarray:

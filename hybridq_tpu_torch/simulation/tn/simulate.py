@@ -19,6 +19,7 @@ from string import ascii_letters
 import numpy as np
 
 from hybridq_tpu_torch.circuit import Circuit, utils
+from hybridq_tpu_torch.simulation._device import span
 from hybridq_tpu_torch.simulation.tn.contract import (ContractionPlan,
                                                       SlicedContractor)
 from hybridq_tpu_torch.simulation.tn.network import (TensorNetwork,
@@ -160,22 +161,24 @@ def simulate_tn(circuit, initial_state, final_state, optimize, backend,
             import copy as _copy
             tree = _copy.deepcopy(tree)
 
-    if isinstance(tree, ContractionPlan):
-        # Pre-sliced plan (e.g. broadcast to every process so that
-        # slice_range partial sums are consistent, the analog of the
-        # reference's rank-0 SlicedContractor bcast,
-        # ``simulation_mpi.py:451``): use it verbatim.
-        tree, sliced = tree.tree, tree.sliced_set
-        from hybridq_tpu_torch.simulation.tn.slicer import SliceCost
-        cost = SliceCost(tree, frozenset(sliced))
-        info = PathInfo(tree)
-    else:
-        # Slice to fit memory, re-optimizing the tree under the slicing
-        # (slice-and-reconfigure alternation).
-        budget = max(5.0, float(kwargs['max_time']) / 4)
-        tree, sliced, cost = slice_and_reconfigure(
-            tree, target_size=kwargs['max_largest_intermediate'],
-            time_budget=budget, verbose=verbose)
+    with span('hq.tn.plan'):
+        if isinstance(tree, ContractionPlan):
+            # Pre-sliced plan (e.g. broadcast to every process so that
+            # slice_range partial sums are consistent, the analog of the
+            # reference's rank-0 SlicedContractor bcast,
+            # ``simulation_mpi.py:451``): use it verbatim.
+            tree, sliced = tree.tree, tree.sliced_set
+            from hybridq_tpu_torch.simulation.tn.slicer import SliceCost
+            cost = SliceCost(tree, frozenset(sliced))
+            info = PathInfo(tree)
+        else:
+            # Slice to fit memory, re-optimizing the tree under the slicing
+            # (slice-and-reconfigure alternation).
+            budget = max(5.0, float(kwargs['max_time']) / 4)
+            tree, sliced, cost = slice_and_reconfigure(
+                tree, target_size=kwargs['max_largest_intermediate'],
+                time_budget=budget, verbose=verbose)
+        plan = ContractionPlan(tree, sliced)
     info_dict.update({
         'flops': info.opt_cost,
         'largest_intermediate': info.largest_intermediate,
@@ -191,9 +194,9 @@ def simulate_tn(circuit, initial_state, final_state, optimize, backend,
         raise RuntimeError(
             f"Too many slices ({cost.nslices} > {kwargs['max_n_slices']})")
 
-    plan = ContractionPlan(tree, sliced)
-    sc = SlicedContractor(plan, net.tensors, output_order,
-                          complex_type=complex_type)
+    with span('hq.tn.contractor'):
+        sc = SlicedContractor(plan, net.tensors, output_order,
+                              complex_type=complex_type)
     t0 = time.time()
     out = sc.contract(backend=backend, devices=kwargs['devices'],
                       device=kwargs['device'], verbose=verbose,
