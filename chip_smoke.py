@@ -136,15 +136,17 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              (``scripts/_plan_cache``, read by
              ``convert.load_reference_plan``) through
              ``SlicedContractor.contract_torch``: the depth-12 plan warm
-             over about 10 s of slices (seconds a slice, TFLOP/s, the
-             bound of a slice, device peak, the projected full
-             amplitude; ``tn_apply`` launched once for each slice-invariant
-             ``'apply'`` step and once a chunk for each batched one, the
-             plain version never); each ``tn_apply`` class (s, f) of the
-             plan at its widest step against the plain version
-             (max|d|/rms <= 1e-5 in complex64, 1e-12 in complex128) and
-             timed in turns beside ``torch.tensordot`` over the same legs
-             (``turns``), with the plain version and the bound; 16 slices
+             over about 10 s of slices (seconds a contracted slice,
+             TFLOP/s, the bound of a slice, device peak, the projected
+             full amplitude over the slices that select no all-zero leaf
+             row; ``tn_apply`` launched once for each slice-invariant
+             ``'apply'`` step and once a chunk of contracted slices for
+             each batched one, the plain version never); each
+             ``tn_apply`` class (s, f) of the plan at its widest step
+             against the plain version (max|d|/rms <= 1e-5 in
+             complex64, 1e-12 in complex128) and timed in turns beside
+             ``torch.tensordot`` over the same legs (``turns``), with
+             the plain version and the bound; 16 slices
              through the kernel route and through the plain route
              (``tn_apply`` patched to ``tn_apply_plain``) in turns, the
              sums within 1e-5; then ``torch.profiler`` over 4 slices:
@@ -1929,7 +1931,9 @@ def tn_profile(sc, r):
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {'slices': list(r), 'wall_ms': wall * 1e3,
+    return {'slices': list(r),
+            'contracted_slices': sc.last_counts['contracted'],
+            'wall_ms': wall * 1e3,
             'device_busy_ms': busy / 1e3,
             'device_busy_share': busy / 1e6 / wall,
             'kernel_ms_by_kind': by_kind, 'kernels': len(kernels),
@@ -2020,7 +2024,8 @@ def tn_turns(sc, r):
     """Whole slices of ``r``, the kernel route and the plain route
     (``tn_apply`` patched to ``tn_apply_plain`` in the executor), in turns
     (kernel, plain, plain, kernel), each turn one ``contract_torch`` over
-    ``r`` on the host clock; the two sums and the ms a slice of each."""
+    ``r`` on the host clock; the two sums and the ms a contracted slice
+    of each."""
     from hybridq_tpu_torch.simulation.tn import tn_kernels as tk
 
     kernel = tk.tn_apply
@@ -2030,7 +2035,7 @@ def tn_turns(sc, r):
             tk.tn_apply = kernel if route == 'kernel' else tk.tn_apply_plain
             amp, dt, _ = timed_slices(sc, r)
             sums[route] = amp
-            ms[route].append(dt / (r[1] - r[0]) * 1e3)
+            ms[route].append(dt / sc.last_counts['contracted'] * 1e3)
     finally:
         tk.tn_apply = kernel
     return sums, ms
@@ -2414,11 +2419,15 @@ def phase_tn(out, name):
         tk.reset_counts()
         amp, dt, peak = timed_slices(sc, (3, 3 + count))
         launches = tk.counts()
-        # the slice-invariant steps once a call, the batched once a chunk
-        want_launches = n_apply_fixed + n_apply * -(-count // sc._chunk())
-        per = dt / count
+        # the slices that select no all-zero leaf row; the slice-invariant
+        # steps once a call, the batched once a chunk of those
+        done = sc.last_counts['contracted']
+        nonzero = int(sc.nonzero_slices().sum())
+        want_launches = n_apply_fixed + n_apply * -(-done // sc._chunk())
+        per = dt / done
         emit({'phase': 'tn', 'part': 'workload', 'plan': TN_PLANS[0],
-              'n_slices': sc.nslices, 'timed_slices': count, 'seconds': dt,
+              'n_slices': sc.nslices, 'timed_slices': count,
+              'contracted_slices': done, 'seconds': dt,
               's_per_slice': per, 'ms_per_slice': per * 1e3,
               'tflops': 8 * costs['macs_per_slice'] / per / 1e12,
               'fp32_peak_tflops': peaks(name)[1] / 1e12,
@@ -2427,14 +2436,14 @@ def phase_tn(out, name):
               'apply_steps_batched': n_apply,
               'apply_steps_fixed': n_apply_fixed, 'launches': launches,
               'launches_expected': want_launches,
-              'projected_full_s': per * sc.nslices,
+              'nonzero_slices': nonzero, 'projected_full_s': per * nonzero,
               'log2_largest': float(np.log2(cost.max_size)),
               **costs, 'card': card}, out)
         check(np.isfinite(amp).all(), "tn: non-finite partial sum")
         check(launches == {'tn_apply': want_launches, 'tn_apply_plain': 0},
               f"tn: tn_apply launches {launches}, want {want_launches} "
               f"({n_apply_fixed} once a call + {n_apply} x "
-              f"{-(-count // sc._chunk())} chunks) and no plain call")
+              f"{-(-done // sc._chunk())} chunks) and no plain call")
 
         # Each tn_apply class of the plan at its widths, against the plain
         # version and timed beside torch.tensordot.

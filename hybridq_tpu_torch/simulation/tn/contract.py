@@ -11,7 +11,9 @@ replaces cotengra's ``SlicedContractor`` (reference
     one slice at a time — the reference the others are held against,
     and ``backend='numpy'``;
   * ``SlicedContractor.contract_torch``: native complex tensors on a
-    torch device.  A chunk of slices runs as a leading batch dimension
+    torch device.  A slice whose sliced legs select an all-zero row of
+    some leaf is exactly 0 and is left out (``nonzero_slices``).  A
+    chunk of the other slices runs as a leading batch dimension
     of every intermediate that depends on the slice; a subtree whose
     leaves carry no sliced index is contracted once per call and enters
     the batched steps unbatched.  Each node's legs stay in the order its
@@ -292,20 +294,80 @@ class SlicedContractor:
         self._schedule = batched, steps
         return self._schedule
 
+    def _slice_rows(self, datas):
+        """The sliced leaves' rows: ``(vs, shifts, weights, nonzero)``.
+
+        Leaf ``vs[l]``, its sliced axes first and flattened to one axis,
+        has ``2^s`` rows; slice id ``i`` takes its row
+        ``sum_k ((i >> shifts[l, k]) & 1) * weights[l, k]``.
+        ``nonzero[l]`` marks the rows that hold an entry other than an
+        exact zero: a slice that takes any other row is exactly 0.
+        ``nonzero`` is None where some leaf of ``datas`` holds a value
+        that is not finite (``0 * inf`` is NaN, so no slice is 0 there)."""
+        plan = self.plan
+        vs = [v for v in range(plan.tree.n_leaves) if plan.leaf_slices[v]]
+        width = max([len(plan.leaf_slices[v]) for v in vs] + [1])
+        shifts = np.zeros((len(vs), width), dtype=np.int64)
+        weights = np.zeros_like(shifts)
+        for l, v in enumerate(vs):
+            sl = plan.leaf_slices[v]
+            shifts[l, :len(sl)] = [j for _, j in sl]
+            weights[l, :len(sl)] = [2 ** (len(sl) - 1 - k)
+                                    for k in range(len(sl))]
+        nonzero = None
+        if np.isfinite(np.concatenate([d.ravel() for d in datas])).all():
+            nonzero = []
+            for v in vs:
+                axes = [pos for pos, _ in plan.leaf_slices[v]]
+                rest = [p for p in range(datas[v].ndim) if p not in axes]
+                rows = np.transpose(datas[v], axes + rest).reshape(
+                    2 ** len(axes), -1)
+                nonzero.append(np.any(rows != 0, axis=1))
+        return vs, shifts, weights, nonzero
+
+    @staticmethod
+    def _rows(ids, shifts, weights, nonzero):
+        """``(rows, keep)`` for the slice ids ``ids``: ``keep`` marks the
+        ids whose rows are all in ``nonzero``, ``rows[l]`` is sliced leaf
+        ``l``'s row of each kept id (``_slice_rows``)."""
+        rows = (((ids[:, None] >> shifts[:, None]) & 1) *
+                weights[:, None]).sum(-1)
+        keep = np.ones(len(ids), dtype=bool)
+        for l, nz in enumerate(nonzero or ()):
+            keep &= nz[rows[l]]
+        return rows[:, keep], keep
+
+    def nonzero_slices(self, slice_range=None) -> np.ndarray:
+        """Mask over the slice ids ``[start, stop)`` of ``slice_range``
+        (all by default): False where the slice's sliced legs select an
+        all-zero row of some leaf, so that its value is exactly 0 and
+        ``contract_torch`` does not contract it."""
+        start, stop = self._range(slice_range)
+        datas = [d.astype(self.complex_type, copy=False) for d in self.datas]
+        _, shifts, weights, nonzero = self._slice_rows(datas)
+        return self._rows(np.arange(start, max(start, stop)), shifts,
+                          weights, nonzero)[1]
+
     def contract_torch(self, device=None,
                        slice_range=None) -> np.ndarray:
         """Sum the slices ``[start, stop)`` of ``slice_range`` (all by
         default) on ``device`` (``None`` means ``'cuda'``, which raises
         without a card); returns a numpy array of ``complex_type``.
 
-        Chunks of ``_chunk()`` slices (2^25 elements over the widest
-        intermediate, as the JAX executor sizes its vmap) run as one
-        batch.  Each child is freed once its parent is made; a square
+        A slice whose sliced legs select an all-zero row of some leaf is
+        exactly 0 and is not contracted (``nonzero_slices``); nothing is
+        skipped where a leaf holds a value that is not finite.  The
+        others run in chunks of ``_chunk()`` slices (2^25 elements over
+        the widest intermediate, as the JAX executor sizes its vmap), each
+        one batch.  Each child is freed once its parent is made; a square
         ``'apply'`` step on a batched operand writes over it.  The root is
         permuted to ``output_order`` once, after the sum.
+        ``self.last_counts`` holds the call's slices ``'asked'`` and
+        ``'contracted'``.
         """
         device = resolve_device(device, 'contract_torch()')
         start, stop = self._range(slice_range)
+        self.last_counts = {'asked': max(0, stop - start), 'contracted': 0}
         if stop <= start:  # empty range: a zero partial sum
             return self._zeros()
         plan = self.plan
@@ -317,34 +379,23 @@ class SlicedContractor:
 
         with full_precision_matmul():
             with span('hq.tn.leaves'):
-                leaves = [torch.as_tensor(
-                    d.astype(self.complex_type, copy=False), device=device)
-                    for d in self.datas]
+                datas = [d.astype(self.complex_type, copy=False)
+                         for d in self.datas]
+                vs, shifts, weights, nonzero = self._slice_rows(datas)
+                leaves = [torch.as_tensor(d, device=device) for d in datas]
+                del datas
                 # Sliced leaves: sliced axes first, flattened to one axis
-                # of 2^s rows that the chunk's ids index; row r of leaf l
-                # for slice id i is
-                # sum_k ((i >> shifts[l, k]) & 1) * weights[l, k].
-                gathers, shifts, weights = {}, [], []
-                width = max([len(plan.leaf_slices[v])
-                             for v in range(n)] + [1])
-                for v in range(n):
-                    sl = plan.leaf_slices[v]
-                    if not sl:
-                        continue
-                    axes = [pos for pos, _ in sl]
+                # of 2^s rows that the chunk's ids index (``_slice_rows``).
+                gathers = {}
+                for v in vs:
+                    axes = [pos for pos, _ in plan.leaf_slices[v]]
                     rest = [p for p in range(leaves[v].dim())
                             if p not in axes]
                     d = leaves[v].permute(axes + rest).reshape(
                         (2 ** len(axes),) +
                         tuple(leaves[v].shape[p] for p in rest))
                     gathers[v] = d.contiguous()
-                    pad = [0] * (width - len(sl))
-                    shifts.append([j for _, j in sl] + pad)
-                    weights.append([2 ** (len(sl) - 1 - k)
-                                    for k in range(len(sl))] + pad)
                     leaves[v] = None
-                shifts = torch.tensor(shifts, device=device)[:, None]
-                weights = torch.tensor(weights, device=device)[:, None]
 
             # Slice-invariant subtrees, once per call: what stays in
             # ``fixed`` is the root or a child of a batched step.
@@ -357,19 +408,25 @@ class SlicedContractor:
 
             if not batched[plan.root]:   # no sliced index: one slice
                 acc = fixed[plan.root] * (stop - start)
+                self.last_counts['contracted'] = stop - start
             else:
                 acc = None
                 chunk = self._chunk()
                 block = chunk * _ROW_BLOCK
                 for b0 in range(start, stop, block):
-                    # every sliced leaf's rows for a block of chunks at once
-                    sids = torch.arange(b0, min(b0 + block, stop),
-                                        device=device)
-                    rows = (((sids[:, None] >> shifts) & 1) *
-                            weights).sum(-1)
-                    for c0 in range(0, len(sids), chunk):
+                    # every sliced leaf's rows for a block of chunks at
+                    # once, the zero slices dropped; the copy from
+                    # pageable memory is staged before it returns
+                    rows, _ = self._rows(
+                        np.arange(b0, min(b0 + block, stop)), shifts,
+                        weights, nonzero)
+                    n_ids = rows.shape[1]
+                    self.last_counts['contracted'] += n_ids
+                    rows = torch.from_numpy(rows).to(device,
+                                                     non_blocking=True)
+                    for c0 in range(0, n_ids, chunk):
                         with span('hq.tn.chunk',
-                                  n=min(chunk, len(sids) - c0)):
+                                  n=min(chunk, n_ids - c0)):
                             vals = {v: d.index_select(
                                 0, rows[l, c0:c0 + chunk])
                                 for l, (v, d) in enumerate(gathers.items())}
@@ -383,6 +440,8 @@ class SlicedContractor:
                             part = vals.pop(plan.root).sum(0)
                             acc = part if acc is None else acc + part
                             del part
+            if acc is None:   # every slice of the range is exactly 0
+                return self._zeros()
             with span('hq.tn.result'):
                 out = acc.permute(self.root_perm) if self.root_perm \
                     else acc

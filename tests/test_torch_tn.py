@@ -186,8 +186,8 @@ def test_torch_executor_matches_contract_np(name, ctype):
 def test_torch_executor_chunks_and_invariant_subtrees(chunk, monkeypatch):
     """Any chunk of slices (3 leaves a partial last chunk) gives the same
     sum; a step whose subtree carries no sliced index runs once a call,
-    a batched step once a chunk; TF32 is off inside and the caller's
-    flags come back."""
+    a batched step once a chunk of the slices that select no all-zero
+    leaf row; TF32 is off inside and the caller's flags come back."""
     jnet, _, jtree, sliced, oo = _case('sliced')
     tnet, ttree = tn_from_reference(jnet, jtree)
     tsc = tcontract.SlicedContractor(tcontract.ContractionPlan(ttree, sliced),
@@ -212,10 +212,128 @@ def test_torch_executor_chunks_and_invariant_subtrees(chunk, monkeypatch):
     monkeypatch.setattr(tsc, '_chunk', lambda: chunk)
     monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
     got = tsc.contract_torch(device='cpu')
-    n_chunks = -(-tsc.nslices // chunk)
+    kept = int(tsc.nonzero_slices().sum())
+    assert tsc.last_counts == {'asked': tsc.nslices, 'contracted': kept}
+    n_chunks = -(-kept // chunk)
     assert len(calls) == n_fixed + n_chunks * n_batched
     assert not any(tf32) and torch.backends.cuda.matmul.allow_tf32
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
+
+
+# (initial state, final state, boundary legs added to the slices, slice
+# ranges): '0' and '1' boundary vectors each have an all-zero row
+ZERO_CASES = {
+    'zero_rows': ('010000', '000000', ('q__0_i', 'q__1_i', 'q__2_f'),
+                  'thirds'),
+    'all_zero': ('010000', '000000', ('q__0_i', 'q__1_i', 'q__2_f'),
+                 'zero run'),
+    'open_legs': ('000000', '..0100', ('q__0_i', 'q__3_f'), 'thirds'),
+    'no_zero_rows': ('++++++', '......', (), 'thirds'),
+    'inf_leaf': ('010000', '000000', ('q__0_i', 'q__1_i', 'q__2_f'),
+                 'thirds'),
+}
+
+
+def _nonzero_count(tensors, sliced, ids):
+    """How many of the slice ids ``ids`` leave no tensor all zero, read
+    from the tensors alone: slice ``s`` fixes ``sorted(sliced)[j]`` to bit
+    ``j`` of ``s``.  Every id counts where a tensor holds a value that is
+    not finite (``0 * inf`` is NaN)."""
+    if not all(np.isfinite(t.data).all() for t in tensors):
+        return len(ids)
+    order = sorted(sliced)
+    count = 0
+    for s in ids:
+        count += all(np.any(t.data[tuple(
+            (s >> order.index(i)) & 1 if i in sliced else slice(None)
+            for i in t.inds)]) for t in tensors)
+    return count
+
+
+@pytest.mark.parametrize('ctype', ['complex64', 'complex128'])
+@pytest.mark.parametrize('case', sorted(ZERO_CASES))
+def test_torch_executor_skips_zero_slices(case, ctype):
+    """A forced-slicing plan whose sliced legs include legs of '0' and '1'
+    boundary vectors: ``contract_torch`` contracts only the slices that
+    select no all-zero row (``last_counts`` against a count from the
+    tensors), and every range sums to JAX's ``contract_np`` of all its
+    slices.  A range of zero slices gives zeros of the output's shape and
+    dtype; with no zero row, or with an ``inf`` in a leaf, nothing is
+    skipped, and the ``inf`` gives NaN where ``contract_np`` does."""
+    initial, final, boundary, ranges = ZERO_CASES[case]
+    cj, _ = _both_rqc(6, 30, 11)
+    jnet, oo = _net(J, jutils, j_build_tn, cj, initial, final, False, ctype)
+    if case == 'inf_leaf':
+        t = next(t for t in jnet.tensors if len(t.inds) == 4)
+        t.data = t.data.copy()
+        t.data.flat[5] = np.inf
+    inputs = [t.inds for t in jnet.tensors]
+    size_dict = {i: d for t in jnet.tensors
+                 for i, d in zip(t.inds, t.data.shape)}
+    jtree = j_find_path(inputs, oo, size_dict, max_repeats=4, seed=0)
+    sliced, _ = j_find_slices(jtree, 2 ** 4)
+    sliced = frozenset(sliced) | frozenset(boundary)
+    tnet, ttree = tn_from_reference(jnet, jtree)
+    jsc = jcontract.SlicedContractor(jcontract.ContractionPlan(jtree, sliced),
+                                     jnet.tensors, oo, complex_type=ctype)
+    tsc = tcontract.SlicedContractor(tcontract.ContractionPlan(ttree, sliced),
+                                     tnet.tensors, oo, complex_type=ctype)
+    assert 4 <= tsc.nslices <= 256
+    n_all = _nonzero_count(jnet.tensors, sliced, range(tsc.nslices))
+    if case in ('no_zero_rows', 'inf_leaf'):
+        assert n_all == tsc.nslices
+    else:
+        assert 0 < n_all < tsc.nslices
+    want = jsc.contract_np()
+    scale = np.abs(want).max()
+    if ranges == 'zero run':
+        keep = [_nonzero_count(jnet.tensors, sliced, [s])
+                for s in range(tsc.nslices)]
+        a = max(range(tsc.nslices), key=lambda s: keep[s:].index(1)
+                if 1 in keep[s:] else tsc.nslices - s)
+        b = keep.index(1, a) if 1 in keep[a:] else tsc.nslices
+        assert b - a >= 2
+        todo = [(a, b)]
+    else:
+        todo = [None] + _ranges(tsc.nslices)
+    for r in todo:
+        ids = range(*(r or (0, tsc.nslices)))
+        got = tsc.contract_torch(device='cpu', slice_range=r)
+        ref = jsc.contract_np(slice_range=r)
+        assert tsc.last_counts == {
+            'asked': len(ids),
+            'contracted': _nonzero_count(jnet.tensors, sliced, ids)}, r
+        assert got.dtype == np.dtype(ctype) and got.shape == ref.shape
+        if ranges == 'zero run':
+            assert tsc.last_counts['contracted'] == 0
+            assert np.array_equal(got, np.zeros_like(ref))
+            assert np.array_equal(ref, np.zeros_like(ref))
+        elif case == 'inf_leaf':
+            assert np.isnan(ref).all()
+            assert np.array_equal(np.isnan(got), np.isnan(ref)), r
+        else:
+            assert np.abs(got - ref).max() / scale <= TOL[ctype], r
+
+
+def test_d12_plan_keeps_the_nonzero_slices():
+    """The committed Sycamore-53 depth-12 plan, on the host, contracting
+    nothing: 4,096 of its 65,536 slices select no all-zero leaf row (slice
+    id bits 2, 8, 14 and 15 read 0 in each), and each of the 32 ranges of
+    256 that hold one keeps 128."""
+    path = os.path.join(ROOT, 'benchmark', 'data', 'syc53_d12_s0_t26.pkl')
+    net, oo, tree, sliced, _ = load_reference_plan(path)
+    sc = tcontract.SlicedContractor(tcontract.ContractionPlan(tree, sliced),
+                                    net.tensors, oo)
+    keep = sc.nonzero_slices()
+    assert keep.shape == (2 ** 16,) and keep.sum() == 4096
+    ids = np.nonzero(keep)[0]
+    assert not np.any(ids & (1 << 2 | 1 << 8 | 1 << 14 | 1 << 15))
+    per_range = keep.reshape(-1, 256).sum(1)
+    assert sorted(Counter(per_range.tolist()).items()) == [(0, 224),
+                                                           (128, 32)]
+    a = 256 * int(np.nonzero(per_range)[0][0])
+    assert np.array_equal(sc.nonzero_slices((a, a + 256)),
+                          keep[a:a + 256])
 
 
 def _evolution(c, initial_state='0'):

@@ -22,7 +22,10 @@
   to ``tn_apply``.
 * Marked ``gpu`` (skipped without a card): the kernel against the plain
   version for every class on the card, max|d|/rms <= 1e-5 (complex64,
-  f32 sums in another order) and 1e-12 (complex128); on the card:
+  f32 sums in another order) and 1e-12 (complex128); and
+  ``contract_torch`` on the card, which leaves out the slices that select
+  an all-zero leaf row, against the port's ``contract_np`` range for
+  range at the executor's tolerances; on the card:
   ``python -m pytest --noconftest -m gpu tests/test_torch_tn_apply.py``.
 """
 
@@ -297,3 +300,59 @@ def test_cuda_tn_apply_matches_plain(cuda, s, f):
                 if f == s and xb:
                     tk.tn_apply(x, op, step, inplace=True)
                     assert _rel(x.cpu().numpy(), want) <= CARD_TOL[dtype]
+
+
+def _zero_row_contractor(ctype):
+    """The port's own forced-slicing plan (no JAX): an 8-qubit closed
+    amplitude, its raw network (the '0' and '1' boundary vectors kept as
+    leaves), the slicer's legs and three boundary legs, each of whose
+    vectors has an all-zero row."""
+    from hybridq_tpu_torch import Circuit, Gate
+    from hybridq_tpu_torch.circuit import utils
+    from hybridq_tpu_torch.extras.random import get_rqc
+    from hybridq_tpu_torch.simulation.tn import build_tn, find_path, \
+        find_slices
+
+    np.random.seed(7)
+    n = 8
+    c = Circuit([Gate('H', qubits=[q]) for q in range(n)]) + \
+        get_rqc(n, 60, indexes=list(range(n)))
+    c = Circuit(utils.to_matrix_gate(b) for b in utils.compress(c, 2))
+    net, order = build_tn(c, '01000000', '00000000', complex_type=ctype,
+                          simplify=False)
+    inputs = [t.inds for t in net.tensors]
+    sizes = {i: d for t in net.tensors for i, d in zip(t.inds, t.data.shape)}
+    tree = find_path(inputs, order, sizes, max_repeats=4, seed=0)
+    sliced, _ = find_slices(tree, 2 ** 6)
+    sliced = frozenset(sliced) | {'q__0_i', 'q__1_i', 'q__2_f'}
+    return tcontract.SlicedContractor(tcontract.ContractionPlan(tree, sliced),
+                                      net.tensors, order, complex_type=ctype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('ctype', ['complex64', 'complex128'])
+def test_cuda_executor_skips_zero_slices(cuda, ctype):
+    """``contract_torch`` on the card leaves out the slices that select an
+    all-zero leaf row, as many as ``nonzero_slices`` predicts on the host,
+    and sums every range as the port's ``contract_np`` sums all of its
+    slices; a range of zero slices gives zeros."""
+    sc = _zero_row_contractor(ctype)
+    keep = sc.nonzero_slices()
+    assert 0 < keep.sum() < sc.nslices
+    want = sc.contract_np()
+    scale = np.abs(want).max()
+    zero = int(np.argmin(keep))
+    for r in [None, (zero, zero + 1)] + _thirds(sc.nslices):
+        a, b = r or (0, sc.nslices)
+        got = sc.contract_torch(device=cuda, slice_range=r)
+        ref = sc.contract_np(slice_range=r)
+        assert sc.last_counts == {'asked': b - a,
+                                  'contracted': int(keep[a:b].sum())}, r
+        assert got.dtype == np.dtype(ctype) and got.shape == ref.shape
+        assert np.abs(got - ref).max() / scale <= EXEC_TOL[ctype], r
+    assert sc.last_counts['contracted'] < sc.last_counts['asked']
+
+
+def _thirds(nslices):
+    cuts = sorted({0, nslices // 3, (2 * nslices) // 3 + 1, nslices})
+    return list(zip(cuts[:-1], cuts[1:]))

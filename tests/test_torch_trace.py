@@ -140,18 +140,24 @@ def test_apply_bits_spans_match_launches(simplify, tmp_path, monkeypatch,
 def test_tn_spans_count_the_slices(chunk, slice_range, tn_case, tmp_path,
                                    monkeypatch):
     """The TN executor's parts nest in ``hq.simulate``, and the ``n`` of
-    its chunks sums to the slices of ``slice_range``."""
+    its chunks sums to the slices of ``slice_range`` that it contracts:
+    those that select no all-zero leaf row (the plan's slices 4-11 are
+    exactly zero)."""
     if chunk is not None:
         monkeypatch.setattr(SlicedContractor, '_chunk', lambda self: chunk)
+    net, (_, plan) = tn_case
+    keep = SlicedContractor(plan, net.tensors,
+                            plan.tree.output).nonzero_slices()
+    assert keep.tolist() == [True] * 4 + [False] * 8 + [True] * 4
     a, b = slice_range
     _, spans = _traced(lambda: _tn(tn_case, slice_range), tmp_path)
     (root,) = [s for s in spans if s[0] == 'hq.simulate']
     assert all(_inside(s, root) for s in spans)
     assert TN_CHILDREN <= {s[0] for s in spans}
     chunks = [s[1]['n'] for s in spans if s[0] == 'hq.tn.chunk']
-    assert sum(chunks) == b - a
+    assert sum(chunks) == keep[a:b].sum() < b - a
     if chunk is not None:
-        assert len(chunks) == -(-(b - a) // chunk)
+        assert len(chunks) == -(-int(keep[a:b].sum()) // chunk)
 
 
 @pytest.mark.parametrize('engine', ['sv', 'tn'])
