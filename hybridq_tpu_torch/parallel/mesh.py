@@ -16,8 +16,14 @@ engines: re half, then im half).  The collectives:
 - ``exchange``: ``ppermute``'s global-local swap.  Two shards whose
   indices differ in one global bit trade the halves of their containers
   whose local bit at ``slot`` does not match their own global bit.
-  Between two shards of this process it swaps the halves in place through
-  a staging copy of half a shard (JAX builds new arrays); between
+  Between two shards of this process it swaps the halves in place, a
+  piece of at most ``PIECE`` floats at a time (JAX builds new arrays): a
+  32-qubit shard's half is 16 GiB, more than a card should stage beside
+  its 32 GiB shard.  Where the half's contiguous runs hold a piece or
+  more, a piece is one contiguous copy each way (a ``cudaMemcpy`` between
+  cards) and one staging copy; else each side first gathers its piece
+  into a contiguous buffer on its own device, so that what crosses
+  between devices is again one contiguous copy each way.  Between
   processes it is one ``batch_isend_irecv`` of contiguous halves.
 - ``all_sum``: ``psum``, a local sum then ``all_reduce``.
 - ``gather``: every shard on the host of every process (``all_gather``).
@@ -34,7 +40,11 @@ import torch
 
 from hybridq_tpu_torch import parallel
 
-__all__ = ['Mesh']
+__all__ = ['Mesh', 'PIECE']
+
+# floats of a half that an exchange between two shards of this process
+# moves in one copy (512 MiB of float32)
+PIECE = 2 ** 27
 
 
 def _default_devices() -> List[torch.device]:
@@ -107,29 +117,46 @@ class Mesh:
 
     # -- exchange --------------------------------------------------------
     def exchange(self, shards: Sequence[torch.Tensor], b: int, slot: int,
-                 n_local: int) -> None:
+                 n_local: int) -> int:
         """Swap global bit ``b`` with local ``slot`` (the local position
         counted from the most significant bit of ``n_local``), in place:
         each shard trades the half of its container whose bit at ``slot``
         differs from its own global bit ``b`` with its partner's matching
-        half."""
+        half.  Returns the bytes that this process's shards sent to a
+        shard on another device: both directions of a pair held here, the
+        sent half of a pair across processes."""
         mask = 1 << (self.g - 1 - b)
         pos = {i: j for j, i in enumerate(self.index)}
-        remote = []
+        pairs, remote = [], []
         for j, i in enumerate(self.index):
             p = i ^ mask
             if p in pos:
                 if i < p:     # once a pair: i has bit 0, p bit 1
-                    a = self._half(shards[j], slot, n_local, 1)
-                    c = self._half(shards[pos[p]], slot, n_local, 0)
+                    pairs.append((self._half(shards[j], slot, n_local, 1),
+                                  self._half(shards[pos[p]], slot,
+                                             n_local, 0)))
+            else:
+                remote.append((j, i, p))
+        # pieces outermost, so that the pairs' copies run side by side
+        for piece in self._pieces(slot, n_local):
+            for a, c in pairs:
+                a, c = a[piece], c[piece]
+                if a.is_contiguous():
                     staged = a.clone()
                     a.copy_(c)
                     c.copy_(staged)
-                    del staged
-            else:
-                remote.append((j, i, p))
+                else:
+                    staged, other = a.contiguous(), c.contiguous()
+                    a.copy_(other.to(a.device))
+                    c.copy_(staged.to(c.device))
+                    del other
+                del staged
+        crossed = sum(2 * a.numel() * a.element_size() for a, c in pairs
+                      if a.device != c.device)
         if remote:
-            self._exchange_remote(shards, remote, b, slot, n_local)
+            crossed += self._exchange_remote(shards, remote, b, slot,
+                                             n_local)
+        return crossed
 
     @staticmethod
     def _half(shard, slot, n_local, half):
@@ -137,6 +164,19 @@ class Mesh:
         ``shard`` (re and im parts) whose bit at ``slot`` is ``half``."""
         return shard.view(2, 2 ** slot, 2, 2 ** (n_local - slot - 1))[
             :, :, half, :]
+
+    @staticmethod
+    def _pieces(slot, n_local):
+        """Indices into a half (``_half``) whose views cover it once, each
+        at most ``PIECE`` floats: runs of ``PIECE`` contiguous floats where
+        the half's runs are that long, else blocks of its rows."""
+        rows, run = 2 ** slot, 2 ** (n_local - slot - 1)
+        if run >= PIECE:
+            return [(part, r, slice(o, o + PIECE)) for part in range(2)
+                    for r in range(rows) for o in range(0, run, PIECE)]
+        step = max(1, PIECE // (2 * run))
+        return [(slice(None), slice(r, r + step))
+                for r in range(0, rows, step)]
 
     def _exchange_remote(self, shards, remote, b, slot, n_local):
         import torch.distributed as dist
@@ -158,6 +198,8 @@ class Mesh:
             work.wait()
         for j, mine, recv, _ in recvs:
             self._half(shards[j], slot, n_local, mine).copy_(recv)
+        return sum(send.numel() * send.element_size()
+                   for _, _, _, send in recvs)
 
     # -- reductions --------------------------------------------------------
     def all_sum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:

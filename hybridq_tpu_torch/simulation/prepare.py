@@ -3,7 +3,8 @@
 A copy of the token-state helpers of ``hybridq_tpu/simulation/prepare.py``:
 tokens '0', '1', '+', '-' build a product state of ``len(state)`` qubits,
 on the host (``prepare_state``) or straight into the engines' split
-container on the device (``token_container``).
+container on the device (``token_container``, ``token_containers``
+for several devices).
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ['prepare_state', 'token_container', 'pack_container',
-           'TOKEN_VECTORS']
+__all__ = ['prepare_state', 'token_container', 'token_containers',
+           'pack_container', 'TOKEN_VECTORS']
 
 _SQRT2 = np.sqrt(2.0)
 
@@ -60,6 +61,15 @@ def token_container(state: str, n: int, device,
     ``n - 7`` and the last ``min(n, 7)`` qubits, written straight into the
     container with no state-sized temporary; the tokens are real, so the
     im half is 0."""
+    return token_containers(state, n, [device], dtype)[0]
+
+
+def token_containers(state: str, n: int, devices,
+                     dtype=torch.float32) -> list:
+    """``token_container`` on each of ``devices``: the row and lane
+    amplitudes are built once on the host, and each container is filled
+    on its own device from them, so that no container is copied between
+    devices."""
     state = _check_state(state, 2)
     if len(state) != n:
         raise ValueError("Wrong number of qubits for state.")
@@ -72,13 +82,18 @@ def token_container(state: str, n: int, device,
         for s in tokens:
             a = np.multiply.outer(
                 a, TOKEN_VECTORS[s].astype(ftype)).reshape(-1)
-        return torch.as_tensor(a, device=device)
+        return a
 
-    row, lane = amps(state[:n - lo]), amps(state[n - lo:])
-    out = torch.zeros(2 ** (n + 1), dtype=dtype, device=device)
-    torch.mul(row[:, None], lane[None, :],
-              out=out[:2 ** n].view(2 ** (n - lo), 2 ** lo))
-    return out
+    row_h, lane_h = amps(state[:n - lo]), amps(state[n - lo:])
+    outs = []
+    for device in devices:
+        row = torch.as_tensor(row_h, device=device)
+        lane = torch.as_tensor(lane_h, device=device)
+        out = torch.zeros(2 ** (n + 1), dtype=dtype, device=device)
+        torch.mul(row[:, None], lane[None, :],
+                  out=out[:2 ** n].view(2 ** (n - lo), 2 ** lo))
+        outs.append(out)
+    return outs
 
 
 def pack_container(psi, device) -> torch.Tensor:

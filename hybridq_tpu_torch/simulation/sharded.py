@@ -23,6 +23,10 @@ methods return the same list of tensors.  What JAX adds for the TPU is
 not ported: the ``R x C`` take-permutations and ``row_bits`` (the TPU's
 ``(8, 128)`` tiles; ``apply_bits`` addresses any flat bit), and the
 program caches (``_progs``, ``_compiled``); PyTorch runs eagerly.
+``ShardedState`` is a result left on the shards' devices
+(``simulate(..., optimize='evolution-sharded', return_numpy_array=False)``):
+it reads given amplitudes where they lie, and gathers the whole state to
+the host only when asked.
 
 ``ShardedIndexedEvolver`` (the default of ``optimize='evolution-sharded'``)
 swaps an incoming global qubit into the lowest local slot the gate does
@@ -31,6 +35,14 @@ not use, and runs Projection and Measure gates on the shards.
 rule for its traced program, the highest free slot, and rejects
 FunctionalGates; so after any ``evolve`` each class's ``perm`` equals its
 JAX twin's.
+
+While a profiler records, the engines open the spans ``hq.compress``,
+``hq.prepare_state``, ``hq.sharded.schedule`` (the layout's planning),
+``hq.sharded.operands`` (the block matrices' uploads) and ``hq.exchange
+b= slot= n=`` (each exchange: global position, local slot, the shard's
+qubits).  ``counts()`` holds ``exchange`` (exchanges run) and
+``exchange_bytes`` (bytes that crossed between devices, ``Mesh.exchange``)
+since the last ``reset_counts()``.
 """
 
 from __future__ import annotations
@@ -43,12 +55,26 @@ import torch
 
 from hybridq_tpu_torch.circuit import Circuit, utils as circuit_utils
 from hybridq_tpu_torch.gate import FunctionalGate
+from hybridq_tpu_torch.simulation._device import span
 from hybridq_tpu_torch.simulation.prepare import TOKEN_VECTORS, _check_state
 
-__all__ = ['ShardedEvolver', 'ShardedIndexedEvolver']
+__all__ = ['ShardedEvolver', 'ShardedIndexedEvolver', 'ShardedState',
+           'counts', 'reset_counts']
 
 _COMPLEX_TYPES = {np.dtype('complex64'): torch.float32,
                   np.dtype('complex128'): torch.float64}
+
+exchanges = 0          # Mesh.exchange calls
+exchange_bytes = 0     # bytes they sent between devices
+
+
+def reset_counts():
+    global exchanges, exchange_bytes
+    exchanges = exchange_bytes = 0
+
+
+def counts() -> dict:
+    return {'exchange': exchanges, 'exchange_bytes': exchange_bytes}
 
 
 def _bit_view(n_local, bits):
@@ -82,6 +108,65 @@ def _apply_plain(shard, U, bits, n_local):
     Y = torch.matmul(U, torch.complex(re[idx], im[idx]))
     re[idx] = Y.real
     im[idx] = Y.imag
+
+
+class ShardedState:
+    """A state left on its shards: the split containers ``shards`` of this
+    process (``Mesh`` order), the mesh, and the layout ``perm``
+    (``perm[p]`` is the logical qubit at physical position ``p``; the
+    first ``g`` positions are the bits of a shard's index)."""
+
+    def __init__(self, mesh, shards, perm, complex_type):
+        self.mesh = mesh
+        self.shards = list(shards)
+        self.perm = list(perm)
+        self.complex_type = np.dtype(complex_type)
+        self.n_qubits = len(self.perm)
+        self.n_local = self.n_qubits - mesh.g
+
+    def synchronize(self):
+        """Wait for the work queued on every CUDA device of the shards."""
+        for dev in dict.fromkeys(self.mesh.devices):
+            if dev.type == 'cuda':
+                torch.cuda.synchronize(dev)
+
+    def amplitudes(self, index) -> torch.Tensor:
+        """The amplitudes of the logical bitstrings ``index`` (int64, qubit
+        0 the most significant bit: the flat index of the one-device
+        result), complex, on the first device of the mesh.  Each shard
+        reads its own on its device; across processes every process must
+        call this (one ``all_sum``)."""
+        n, nl = self.n_qubits, self.n_local
+        N = 2 ** nl
+        ctype = torch.complex64 if self.shards[0].dtype == torch.float32 \
+            else torch.complex128
+        parts = []
+        for d, shard in zip(self.mesh.index, self.shards):
+            logical = torch.as_tensor(index, dtype=torch.int64).to(
+                shard.device)
+            phys = torch.zeros_like(logical)
+            for p, q in enumerate(self.perm):
+                phys |= ((logical >> (n - 1 - q)) & 1) << (n - 1 - p)
+            off = phys & (N - 1)
+            amp = torch.complex(shard[off], shard[N + off])
+            mine = (phys >> nl) == d
+            parts.append(torch.view_as_real(torch.where(
+                mine, amp, torch.zeros((), dtype=ctype,
+                                       device=shard.device))))
+        # each index lies on one shard: the others add exact zeros
+        return torch.view_as_complex(self.mesh.all_sum(parts))
+
+    def gather(self) -> np.ndarray:
+        """The full complex state on the host, axes in sorted-qubit
+        order (``(2,)*n``)."""
+        rows = self.mesh.gather(self.shards).numpy()
+        N = 2 ** self.n_local
+        full = (rows[:, :N].astype(self.complex_type) +
+                1j * rows[:, N:]).reshape((2,) * self.n_qubits)
+        if self.perm != list(range(self.n_qubits)):
+            inv = [self.perm.index(q) for q in range(self.n_qubits)]
+            full = np.transpose(full, inv)
+        return full
 
 
 class ShardedEvolver:
@@ -120,21 +205,25 @@ class ShardedEvolver:
 
     # -- state construction -----------------------------------------------
     def prepare_state(self, state: str):
-        """A token product state, each shard built on its device."""
-        from hybridq_tpu_torch.simulation.prepare import token_container
+        """A token product state: the local tokens' amplitudes are built
+        once on the host, each device fills its own container from them
+        (nothing crosses between devices), then each shard is scaled by
+        its global tokens' amplitude."""
+        from hybridq_tpu_torch.simulation.prepare import token_containers
 
         state = _check_state(state, 2)
         if len(state) != self.n_qubits:
             raise ValueError("Wrong number of qubits for state.")
         g, nl = self.g, self.n_local
-        shards = []
-        for d, dev in zip(self.mesh.index, self.mesh.devices):
+        amps = []
+        for d in self.mesh.index:
             amp = 1.0
             for p in range(g):
                 amp *= TOKEN_VECTORS[state[p]][(d >> (g - 1 - p)) & 1]
-            shard = token_container(state[g:], nl, dev, self.dtype)
-            shards.append(shard.mul_(float(amp)))
-        return shards
+            amps.append(float(amp))
+        shards = token_containers(state[g:], nl, self.mesh.devices,
+                                  self.dtype)
+        return [s.mul_(amp) for s, amp in zip(shards, amps)]
 
     def scatter_state(self, psi):
         """This process's shards of a full host state (``(2,)*n`` or flat,
@@ -201,8 +290,12 @@ class ShardedEvolver:
         return ops, perm
 
     def _exchange(self, psi, b, slot):
-        self.mesh.exchange(psi, b, slot, self.n_local)
+        global exchanges, exchange_bytes
+        with span('hq.exchange', b=b, slot=slot, n=self.n_local):
+            sent = self.mesh.exchange(psi, b, slot, self.n_local)
         self.exchanges += 1
+        exchanges += 1
+        exchange_bytes += sent
 
     # -- gates ------------------------------------------------------------
     def _operands(self, mats):
@@ -211,18 +304,19 @@ class ShardedEvolver:
         ctype = torch.complex64 if self.dtype == torch.float32 \
             else torch.complex128
         out = {}
-        for dev in dict.fromkeys(self.mesh.devices):
-            ops = [None] * len(mats)
-            by_dim: dict = {}
-            for i, U in enumerate(mats):
-                by_dim.setdefault(np.shape(U)[0], []).append(i)
-            for idxs in by_dim.values():
-                stack = torch.as_tensor(np.stack(
-                    [np.asarray(mats[i]) for i in idxs]), dtype=ctype,
-                    device=dev)
-                for j, i in enumerate(idxs):
-                    ops[i] = stack[j]
-            out[dev] = ops
+        with span('hq.sharded.operands'):
+            for dev in dict.fromkeys(self.mesh.devices):
+                ops = [None] * len(mats)
+                by_dim: dict = {}
+                for i, U in enumerate(mats):
+                    by_dim.setdefault(np.shape(U)[0], []).append(i)
+                for idxs in by_dim.values():
+                    stack = torch.as_tensor(np.stack(
+                        [np.asarray(mats[i]) for i in idxs]), dtype=ctype,
+                        device=dev)
+                    for j, i in enumerate(idxs):
+                        ops[i] = stack[j]
+                out[dev] = ops
         return out
 
     def _apply_local(self, psi, ops, i, slots):
@@ -240,7 +334,9 @@ class ShardedEvolver:
         return psi
 
     def _compressed(self, circuit, skip=None):
-        if self.compress and self.compress > 1:
+        if not (self.compress and self.compress > 1):
+            return list(circuit)
+        with span('hq.compress'):
             blocks = circuit_utils.compress(
                 circuit, min(self.compress, self.n_local),
                 skip_compression=skip)
@@ -253,8 +349,7 @@ class ShardedEvolver:
                         b, complex_type=self.complex_type))
                 else:
                     gates.append(b[0])
-            return gates
-        return list(circuit)
+        return gates
 
     def _qubit_index(self, circuit, qubits):
         all_qubits = circuit.all_qubits if qubits is None else list(qubits)
@@ -272,7 +367,8 @@ class ShardedEvolver:
                 "yet; use the single-chip engine.")
         _, qubit_index = self._qubit_index(circuit, qubits)
         gates = self._compressed(circuit)
-        ops, perm = self._schedule(gates, qubit_index)
+        with span('hq.sharded.schedule'):
+            ops, perm = self._schedule(gates, qubit_index)
         mats = self._operands([np.asarray(gate.matrix(),
                                           dtype=self.complex_type)
                                for gate in gates])
@@ -284,17 +380,14 @@ class ShardedEvolver:
         self.perm = perm
         return psi
 
+    def state(self, psi) -> ShardedState:
+        """The shards ``psi`` in the current layout, as a result."""
+        return ShardedState(self.mesh, psi, self.perm, self.complex_type)
+
     def gather(self, psi) -> np.ndarray:
         """The full complex state on the host, axes in sorted-qubit
         order."""
-        rows = self.mesh.gather(psi).numpy()
-        N = 2 ** self.n_local
-        full = (rows[:, :N].astype(self.complex_type) +
-                1j * rows[:, N:]).reshape((2,) * self.n_qubits)
-        if self.perm != list(range(self.n_qubits)):
-            inv = [self.perm.index(q) for q in range(self.n_qubits)]
-            full = np.transpose(full, inv)
-        return full
+        return self.state(psi).gather()
 
     def norm(self, psi) -> float:
         """Global L2 norm (one ``all_sum`` over the mesh)."""
@@ -324,7 +417,9 @@ class ShardedIndexedEvolver(ShardedEvolver):
         """Swap every global member of ``logical_qubits`` into a local
         slot; returns ``(psi, slots)``."""
         qs = list(logical_qubits)
-        for p, slot in self._moves(self.perm, qs):
+        with span('hq.sharded.schedule'):
+            moves = self._moves(self.perm, qs)
+        for p, slot in moves:
             self._exchange(psi, p, slot)
         return psi, [self.perm.index(q) - self.g for q in qs]
 

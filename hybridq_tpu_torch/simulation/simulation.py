@@ -23,7 +23,9 @@ The counterpart of ``hybridq_tpu/simulation/simulation.py`` (its
   * ``'evolution-sharded'``: the state split over a mesh of shards
     (``sharded.py``; ``sharded_mode='indexed'``, the default, or
     ``'traced'``; ``devices=`` lists this process's devices, one shard
-    each, ``['cuda:0'] * 4`` on one card, ``['cpu'] * 4`` on the host).
+    each, ``['cuda:0'] * 4`` on one card, ``['cpu'] * 4`` on the host;
+    without it every visible card).  ``return_numpy_array=False`` leaves
+    the result on the shards' devices, a ``sharded.ShardedState``.
   * ``expectation_value(state, op, qubits_order)``.
 
 ``device=None`` means ``'cuda'``, or the first entry of ``devices=`` when
@@ -230,7 +232,8 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
                               device, kwargs)
         info.update({'engine': 'sharded',
                      'runtime (s)': _time_mod.time() - t0})
-        psi = psi.astype(complex_type, copy=False)
+        if kwargs['return_numpy_array']:
+            psi = psi.astype(complex_type, copy=False)
         return (psi, info) if kwargs['return_info'] else psi
 
     # Compress into k-qubit blocks, never merging FunctionalGates.
@@ -296,7 +299,9 @@ def _evolve_sharded(circuit, qubits, initial_state, complex_type, device,
     the host when ``device`` is the CPU).  ``sharded_mode='indexed'``
     (default) runs gate by gate with Measure/Projection on the shards;
     ``'traced'`` plans the whole circuit first.  Returns the gathered
-    host state."""
+    host state, or with ``return_numpy_array=False`` the state left on
+    the shards (``ShardedState``); ``block_until_ready`` waits for every
+    device of the mesh."""
     from hybridq_tpu_torch.simulation.sharded import (ShardedEvolver,
                                                       ShardedIndexedEvolver)
 
@@ -308,13 +313,19 @@ def _evolve_sharded(circuit, qubits, initial_state, complex_type, device,
     ev = cls(n_qubits=len(qubits), devices=devices,
              complex_type=complex_type,
              compress=kwargs.get('compress', 2) or 2)
-    if isinstance(initial_state, str):
-        psi = ev.prepare_state(initial_state)
-    else:
-        psi = ev.scatter_state(
-            np.asarray(initial_state, dtype=complex_type))
-    psi = ev.evolve(psi, circuit, qubits=qubits)
-    return ev.gather(psi)
+    with span('hq.prepare_state'):
+        if isinstance(initial_state, str):
+            psi = ev.prepare_state(initial_state)
+        else:
+            psi = ev.scatter_state(
+                np.asarray(initial_state, dtype=complex_type))
+    state = ev.state(ev.evolve(psi, circuit, qubits=qubits))
+    if kwargs['block_until_ready']:
+        with span('hq.sync'):
+            state.synchronize()
+    if kwargs['return_numpy_array']:
+        return state.gather()
+    return state
 
 
 def _host_round_trip(payload, psi, qubits):
