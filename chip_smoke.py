@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --out run.jsonl # also append the JSON lines
     python3 chip_smoke.py --phases build,probes   # only these phases
+    python3 chip_smoke.py --phases front_end --parent DIR   # host only
 
 Phases, each printing one JSON line (a failing phase exits non-zero):
 
@@ -184,6 +185,15 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              under ``torch.profiler`` (``device_ms``, and the launch grid
              as blocks x threads), after the host time of a dot call's
              parts (``dot_host_ms``).  Runs after ``paths``.
+  front_end  host time of ``circuit.utils.simplify``, the front end of
+             ``simulate``'s default call, on the benchmark's Sycamore
+             circuits (``benchmark/hqbench/circuits.rqc(32, 14, [s, 1,
+             0])``, 618 gates) for a few seeds, best of 3 each, in a fresh
+             interpreter a turn; with ``--parent DIR`` (an unpacked copy
+             of another commit) in turns with that copy (parent, this,
+             this, parent), whose outputs must match gate for gate; and
+             the ``counts()`` of this checkout's scan.  Needs no card, and
+             runs alone without one.
 
 Then the ``{"kernels": [...]}`` summary (of the phases that ran), the
 card's ``name, power.limit`` and, as the last line, ``{"ok": true,
@@ -272,6 +282,7 @@ CLIFFORD_T_HOLD = 26       # T gates: a frontier of 2^18-2^19 branches
 CLIFFORD_T_TIMED = 38      # T gates: about 2^22 branches explored
 CLI_DM_N, CLI_DM_GATES, CLI_DM_T = 16, 320, 12   # main_dm's circuit
 SHARDS = (4, 8)            # sharded: shards on the one card
+FRONT_END_SEEDS = (1, 2, 3, 4)   # front_end: rqc(32, 14, [s, 1, 0])
 TN_TF32_TOL = 1e-6         # |change| / |amp| when the global TF32 flags
                            # are turned on (one TF32 pass gives ~1e-3)
 # Published peaks (NVIDIA data sheets, dense): bytes/s, fp32 FLOP/s outside
@@ -311,8 +322,10 @@ KERNEL_INFO = {
 }
 
 
-PHASES = ('build', 'kernels', 'parity', 'paths', 'probes', 'main_path',
-          'dm', 'trajectories', 'clifford', 'cli', 'sharded', 'tn')
+PHASES = ('front_end', 'build', 'kernels', 'parity', 'paths', 'probes',
+          'main_path', 'dm', 'trajectories', 'clifford', 'cli', 'sharded',
+          'tn')
+HOST_PHASES = ('front_end',)   # phases that need no card
 
 
 class PhaseError(RuntimeError):
@@ -2556,6 +2569,88 @@ def phase_tn(out, name):
     return summary
 
 
+# One turn of ``front_end`` in a fresh interpreter: argv is the checkout,
+# the benchmark's directory and the seeds.  Prints the best of 3 seconds of
+# ``simplify`` a seed, a digest of each output and the scan's counts.
+_FRONT_END_TURN = r"""
+import hashlib, json, sys, time
+root, bench, seeds = sys.argv[1], sys.argv[2], sys.argv[3].split(',')
+sys.path[:0] = [root, bench]
+from hqbench import circuits
+from hybridq_tpu_torch import Circuit, Gate
+from hybridq_tpu_torch.circuit import utils
+rows = []
+for s in map(int, seeds):
+    c = Circuit(Gate(name, qubits=list(q), params=list(p)) if p else
+                Gate(name, qubits=list(q))
+                for name, q, p in circuits.rqc(32, 14, [s, 1, 0]))
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        out = utils.simplify(c)
+        times.append(time.perf_counter() - t)
+    key = repr([(g.name, g.qubits, g.power, getattr(g, 'params', None),
+                 g.is_conjugated(), g.is_transposed()) for g in out])
+    rows.append({'seed': s, 'gates': len(c), 'out_gates': len(out),
+                 's': min(times),
+                 'digest': hashlib.sha1(key.encode()).hexdigest()})
+counts = getattr(utils, 'counts', None)
+if counts is not None:
+    utils.reset_counts()
+    utils.simplify(c)
+print(json.dumps({'rows': rows, 'counts': counts() if counts else None}))
+"""
+
+
+def phase_front_end(out, parent):
+    here = os.path.dirname(os.path.abspath(__file__))
+    bench = os.path.join(here, 'benchmark')
+    seeds = ','.join(map(str, FRONT_END_SEEDS))
+
+    def turn(root):
+        r = subprocess.run([sys.executable, '-c', _FRONT_END_TURN, root,
+                            bench, seeds], capture_output=True, text=True,
+                           timeout=600)
+        check(r.returncode == 0,
+              f"front_end: turn in {root} failed: {r.stderr[-2000:]}")
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    roots = {'change': here}
+    order = ['change']
+    if parent:
+        check(os.path.isdir(os.path.join(parent, 'hybridq_tpu_torch')),
+              f"front_end: no hybridq_tpu_torch/ under {parent}")
+        roots['parent'] = os.path.abspath(parent)
+        order = ['parent', 'change', 'change', 'parent']
+    turns = {k: [] for k in roots}
+    for side in order:
+        turns[side].append(turn(roots[side]))
+    best = {k: [min(t['rows'][i]['s'] for t in v)
+                for i in range(len(FRONT_END_SEEDS))]
+            for k, v in turns.items()}
+    line = {'phase': 'front_end', 'n': 32, 'cycles': 14,
+            'seeds': list(FRONT_END_SEEDS),
+            'gates': [r['gates'] for r in turns['change'][0]['rows']],
+            'out_gates': [r['out_gates']
+                          for r in turns['change'][0]['rows']],
+            'simplify_s': best['change'],
+            'counts': turns['change'][0]['counts'],
+            'host_cpus': os.cpu_count()}
+    if parent:
+        digests = {k: [[r['digest'] for r in t['rows']] for t in v]
+                   for k, v in turns.items()}
+        same = all(d == digests['change'][0] for v in digests.values()
+                   for d in v)
+        check(same, "front_end: the parent's and this checkout's "
+                    "simplify differ")
+        line.update({'parent_simplify_s': best['parent'],
+                     'speedup': [p / c for p, c in
+                                 zip(best['parent'], best['change'])],
+                     'same_output': same})
+    emit(line, out)
+    return []
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--out', default=None,
@@ -2563,6 +2658,9 @@ def main(argv=None):
     ap.add_argument('--phases', default=','.join(PHASES),
                     help="comma-separated phases to run, in their fixed "
                          "order (default: all)")
+    ap.add_argument('--parent', default=None,
+                    help="front_end: an unpacked copy of another commit "
+                         "to time in turns with this checkout")
     args = ap.parse_args(argv)
     phases = args.phases.split(',')
     unknown = set(phases) - set(PHASES)
@@ -2571,7 +2669,8 @@ def main(argv=None):
 
     import torch
 
-    if not torch.cuda.is_available():
+    on_card = [p for p in phases if p not in HOST_PHASES]
+    if on_card and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
@@ -2582,10 +2681,11 @@ def main(argv=None):
     sys.path.insert(0, here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    name = torch.cuda.get_device_name(0) if on_card else None
 
     out = open(args.out, 'a') if args.out else None
-    runs = {'build': lambda: phase_build(out),
+    runs = {'front_end': lambda: phase_front_end(out, args.parent),
+            'build': lambda: phase_build(out),
             'kernels': lambda: phase_kernels(out, name),
             'parity': lambda: phase_parity(out),
             'paths': lambda: phase_paths(out, name),
@@ -2602,6 +2702,10 @@ def main(argv=None):
         for phase in PHASES:
             if phase in phases:
                 summary[phase] = runs[phase]() or []
+        if not on_card:
+            print(json.dumps({'ok': True, 'device': {
+                'platform': 'host', 'count': 0}}), flush=True)
+            return 0
         emit({'kernels': [k for phase in ('main_path', 'paths', 'probes',
                                           'tn')
                           for k in summary.get(phase, [])]}, out)

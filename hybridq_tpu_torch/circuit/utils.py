@@ -17,10 +17,13 @@ Host-side, deterministic circuit rewrites mirroring the reference
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 
 from hybridq_tpu_torch.circuit.circuit import Circuit
-from hybridq_tpu_torch.gate import BaseGate, Gate, MatrixGate, TupleGate
+from hybridq_tpu_torch.gate import (BaseGate, Gate, MatrixGate,
+                                    PowerMatrixGate, TupleGate)
 from hybridq_tpu_torch.utils import sort, argsort
 
 __all__ = [
@@ -107,6 +110,79 @@ def isclose(a, b, use_matrix_commutation: bool = True,
     return not s or all(isidentity([g], atol=atol) for g in s)
 
 
+# Work of the insertion scan (``simplify``, ``pop*``, ``isclose``): gates
+# inserted, positions visited, and inverse or commutation tests that
+# reached numpy.
+simplify_gates = 0
+scanned = 0
+matrix_tests = 0
+
+
+def reset_counts():
+    global simplify_gates, scanned, matrix_tests
+    simplify_gates = scanned = matrix_tests = 0
+
+
+def counts() -> dict:
+    return {'simplify_gates': simplify_gates, 'scanned': scanned,
+            'matrix_tests': matrix_tests}
+
+
+def _own_matrix(g, cache: dict) -> np.ndarray:
+    """``g.matrix()`` in complex128, computed once per ``cache``.  Each
+    entry holds its gate, so no id is reused while the cache lives."""
+    hit = cache.get(id(g))
+    if hit is None:
+        hit = cache[id(g)] = (g, np.asarray(g.matrix(), dtype='complex128'))
+    return hit[1]
+
+
+def _widen(M: np.ndarray, qubits: tuple, order: tuple) -> np.ndarray:
+    """``M`` on ``qubits``, times the identity on the rest of ``order``,
+    with its axes in ``order``."""
+    if qubits == order:
+        return M
+    n, k = len(order), len(qubits)
+    # Axes of M ⊗ I: M's outputs, M's inputs, then the identity's.
+    T = np.multiply.outer(np.reshape(M, (2,) * (2 * k)),
+                          np.reshape(np.eye(2**(n - k)), (2,) * (2 * (n - k))))
+    rest = [q for q in order if q not in qubits]
+    axis = {q: (i, k + i) for i, q in enumerate(qubits)}
+    axis.update({q: (2 * k + i, n + k + i) for i, q in enumerate(rest)})
+    perm = [axis[q][0] for q in order] + [axis[q][1] for q in order]
+    return np.reshape(np.transpose(T, perm), (2**n, 2**n))
+
+
+def _commutes(gate, g, cache: dict, atol: float) -> bool:
+    """``gate.commutes_with(g, atol=atol)`` for gates that share a qubit:
+    ``g·gate`` against ``gate·g`` on the union of their qubits, from each
+    gate's matrix taken once per ``cache``."""
+    global matrix_tests
+    if not (isinstance(g, BaseGate) and g.provides('matrix,qubits')):
+        return False
+    gq = g.qubits
+    order = gate.qubits + tuple(q for q in gq if q not in gate.qubits)
+    A = _widen(_own_matrix(gate, cache), gate.qubits, order)
+    B = _widen(_own_matrix(g, cache), gq, order)
+    matrix_tests += 1
+    return np.allclose(B @ A, A @ B, atol=atol)
+
+
+def _is_inverse(inv, inv_M, g, cache: dict, atol: float) -> bool:
+    """``inv.isclose(g, atol=atol)``, where ``inv_M`` is ``inv.matrix()``."""
+    global matrix_tests
+    if not (isinstance(g, BaseGate) and g.provides('matrix')):
+        return False
+    if inv.n_qubits != g.n_qubits or g.qubits is None:
+        return False
+    if sort(inv.qubits) != sort(g.qubits):
+        return False
+    M = _own_matrix(g, cache) if g.qubits == inv.qubits else \
+        g.matrix(order=inv.qubits)
+    matrix_tests += 1
+    return np.allclose(inv_M, M, atol=atol)
+
+
 def insert_from_left(circuit, gate: BaseGate, atol: float = 1e-8, *,
                      use_matrix_commutation: bool = True,
                      max_n_qubits_matrix: int = 10, simplify: bool = True,
@@ -114,22 +190,65 @@ def insert_from_left(circuit, gate: BaseGate, atol: float = 1e-8, *,
                      inplace: bool = False) -> Circuit:
     """Insert ``gate`` scanning from the left, cancelling with an inverse or
     commuting past gates when possible (reference ``:122-208``)."""
-    import copy as _copy
     if not inplace:
         circuit = Circuit(g.copy() for g in circuit)
+    _insert(circuit, gate, {}, atol=atol,
+            use_matrix_commutation=use_matrix_commutation,
+            max_n_qubits_matrix=max_n_qubits_matrix, simplify=simplify,
+            pop=pop, pinned_qubits=pinned_qubits)
+    return circuit
+
+
+def _insert(circuit, gate, cache: dict, gate_M=None, *, atol,
+            use_matrix_commutation, max_n_qubits_matrix, simplify, pop=False,
+            pinned_qubits=None):
+    """``insert_from_left`` in place, with each matrix taken once per
+    ``cache``; ``gate_M``, if given, is ``gate.matrix()`` in complex128.
+    Only a ``PowerMatrixGate`` has an inverse and a commutation test."""
+    global simplify_gates, scanned
+    simplify_gates += 1
 
     if not gate.provides('qubits') or gate.qubits is None:
-        circuit.insert(0, _copy.deepcopy(gate))
-        return circuit
+        circuit.insert(0, copy.deepcopy(gate))
+        return
     qubits = set(gate.qubits)
+    if gate_M is not None:
+        cache[id(gate)] = (gate, gate_M)
+    matrix_gate = isinstance(gate, PowerMatrixGate)
 
+    # The inverse is the same at every position: build it once, and its
+    # matrix at the first position it can match.
+    inv = inv_M = None
+    if simplify and matrix_gate:
+        try:
+            inv = gate.inv()
+        except Exception:
+            pass
+
+    at = n_scanned = len(circuit)
     for p, g in enumerate(circuit):
-        # Cancel with an inverse partner.
-        if simplify:
+        # A gate on other qubits that is small enough to test commutes and
+        # is no inverse partner.
+        try:
+            gq = g.qubits
+            if gq is not None and qubits and qubits.isdisjoint(gq) and \
+                    g.n_qubits is not None and \
+                    g.n_qubits <= max_n_qubits_matrix:
+                continue
+        except Exception:
+            pass
+        # Cancel with an inverse partner, which acts on the same qubits.
+        if inv is not None:
             try:
-                if gate.inv().isclose(g, atol=atol):
-                    del circuit[p]
-                    return circuit
+                gq = g.qubits
+                if gq is not None and len(gq) == len(qubits) and \
+                        qubits.issuperset(gq):
+                    if inv_M is None:
+                        inv_M = inv.matrix()
+                    if _is_inverse(inv, inv_M, g, cache, atol):
+                        del circuit[p]
+                        at, n_scanned = None, p + 1
+                        break
             except Exception:
                 pass
         # Commute past, or insert here.
@@ -138,19 +257,27 @@ def insert_from_left(circuit, gate: BaseGate, atol: float = 1e-8, *,
             if g.n_qubits is not None and \
                     g.n_qubits <= max_n_qubits_matrix and \
                     g.qubits is not None:
-                commute |= not qubits.intersection(g.qubits)
-                if not commute and use_matrix_commutation:
-                    commute |= gate.commutes_with(g, atol=atol)
+                commute = not qubits.intersection(g.qubits)
+                if not commute and use_matrix_commutation and matrix_gate:
+                    commute = _commutes(gate, g, cache, atol)
         except Exception:
             pass
         if not commute:
-            circuit.insert(p, _copy.deepcopy(gate))
-            return circuit
+            at, n_scanned = p, p + 1
+            break
+    else:
+        # Commutes with everything: append, unless popping outside the
+        # lightcone.
+        if pop and not qubits.intersection(pinned_qubits or ()):
+            at = None
+    scanned += n_scanned
 
-    # Commutes with everything: append, unless popping outside the lightcone.
-    if not pop or qubits.intersection(pinned_qubits or ()):
-        circuit.append(_copy.deepcopy(gate))
-    return circuit
+    hit = cache.pop(id(gate), None)
+    if at is not None:
+        new = copy.deepcopy(gate)
+        circuit.insert(at, new)
+        if hit is not None:
+            cache[id(new)] = (new, hit[1])
 
 
 def compress(circuit, max_n_qubits: int = 2, *, exclude_qubits=None,
@@ -254,21 +381,27 @@ def simplify(circuit, atol: float = 1e-8,
              use_matrix_commutation: bool = True,
              max_n_qubits_matrix: int = 10, remove_id_gates: bool = True,
              verbose: bool = False) -> Circuit:
-    """Cancel inverse pairs and drop identities (reference ``:825-865``)."""
+    """Cancel inverse pairs and drop identities (reference ``:825-865``).
+    Each gate's matrix is computed at most once."""
     new_circuit = Circuit()
-    if remove_id_gates:
-        rev = (g for g in reversed(circuit)
-               if g.name != 'I' and
-               (not g.provides('matrix') or g.n_qubits is None or
-                g.n_qubits > max_n_qubits_matrix or
-                not isidentity([g], atol=atol)))
-    else:
-        rev = reversed(circuit)
-    for gate in rev:
-        insert_from_left(new_circuit, gate, atol=atol,
-                         use_matrix_commutation=use_matrix_commutation,
-                         max_n_qubits_matrix=max_n_qubits_matrix,
-                         simplify=True, pop=False, inplace=True)
+    cache = {}
+    for gate in reversed(circuit):
+        M = None
+        if remove_id_gates:
+            if gate.name == 'I':
+                continue
+            if gate.provides('matrix') and gate.n_qubits is not None and \
+                    gate.n_qubits <= max_n_qubits_matrix:
+                if isinstance(gate, PowerMatrixGate) and \
+                        gate.qubits is not None:
+                    M = np.asarray(gate.matrix(), dtype='complex128')
+                    if np.allclose(M, np.eye(M.shape[0]), atol=atol):
+                        continue
+                elif isidentity([gate], atol=atol):
+                    continue
+        _insert(new_circuit, gate, cache, M, atol=atol,
+                use_matrix_commutation=use_matrix_commutation,
+                max_n_qubits_matrix=max_n_qubits_matrix, simplify=True)
     return new_circuit
 
 
@@ -279,12 +412,12 @@ def popright(circuit, pinned_qubits, atol: float = 1e-8,
     """Remove gates outside the lightcone of ``pinned_qubits`` (from the
     right)."""
     new_circuit = Circuit()
+    cache = {}
     for gate in reversed(circuit):
-        insert_from_left(new_circuit, gate, atol=atol,
-                         use_matrix_commutation=use_matrix_commutation,
-                         max_n_qubits_matrix=max_n_qubits_matrix,
-                         simplify=simplify, pop=True,
-                         pinned_qubits=pinned_qubits, inplace=True)
+        _insert(new_circuit, gate, cache, atol=atol,
+                use_matrix_commutation=use_matrix_commutation,
+                max_n_qubits_matrix=max_n_qubits_matrix, simplify=simplify,
+                pop=True, pinned_qubits=pinned_qubits)
     return new_circuit
 
 
