@@ -18,17 +18,17 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              time kernel, plain version, bound and a ``torch.matmul`` of
              the same arithmetic; from k = 6 (the tensor cores, 3xTF32)
              the bound is the 3xTF32 one, beside the fp32 CUDA-core one,
-             and U's bytes per launch stand beside the state's; also time
-             the row gather of a park and the host time of one step.
-             These are the costs that ``fused_evolver._step_cost`` prices
-             a step with.  Then the straight classes: ``apply_bits`` at
+             and U's bytes per launch stand beside the state's; also the
+             host time of one step (a memoized
+             ``IndexedEvolver.apply_gate``: ``kernels._STEP_MS``).  Then
+             the straight classes: ``apply_bits`` at
              k = 1..8 with the lowest gate bit at 0, 1, 2, 3 and >= 7 (the
              other bits those of the fused k - 1 case), held and timed the
              same way: the straight cost table (``kernels.straight_cost``);
   parity     ``simulate(get_rqc(24, ...))`` on the card against a
              per-gate numpy oracle on the host, at 20 and 40 random gates
              after an H layer, three times: ``'evolution'`` and
-             ``'evolution-fused'`` in complex64 (max|d| over the largest
+             ``'evolution-einsum'`` in complex64 (max|d| over the largest
              amplitude <= 3e-6 at both depths, max|d|/rms <= 1e-5 at 20;
              the engine's kernels must launch, no plain version run), and
              ``'evolution'`` in complex128 (max|d|/rms <= 1e-6, the
@@ -38,7 +38,8 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              (``probe_fused_perf.py``'s and ``probe_fused_check.py``'s
              cases and the largest the port takes; beside each with one or
              two lane bits, ``apply_swap`` on the product with the victims
-             ``FusedEvolver`` picks), ``apply_gate_rows`` (``test_pallas.py``'s
+             the JAX fused engine picks: the lowest free bits >= 12),
+             ``apply_gate_rows`` (``test_pallas.py``'s
              positions at L = 10, and n = 12) and ``apply_fused_k4`` (the
              main path's and ``probe_fused_k4.py``'s bits, beside
              ``apply_fused``; it runs ``column_apply_kernel<4>`` too).
@@ -55,19 +56,16 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              (``bound_fp32_ms`` beside it);
   main_path  n = 30 (8 GiB of state), the workload of ``bench.py``: 24
              random 4-qubit unitaries avoiding bits 0-2.  First through
-             ``simulate(..., optimize='evolution')`` (the straight engine
-             or ``FusedEvolver``, as ``simulation.ENGINE_ON_CARD`` says),
-             then ``'evolution-fused'``, each with launch counts zeroed
-             just before and read just after, its seconds and device peak
-             recorded (the result goes to the host); then bench-style
-             timed passes through ``FusedEvolver`` with amplitudes read
-             through the slot map (no flush, no gather) and through
-             ``IndexedEvolver``, each paired (``pair_fused_gates``,
-             ``pair_matrix_gates``) and unpaired, in one run; a paired pass
-             may take at most 1.1x its unpaired one.  Then straight passes
-             and ``simulate`` at n = 31 and 32.  Each kernel is then
-             replayed at the most frequent gate size the main path gave it
-             and held against its plain version.  Also the first
+             ``simulate(..., optimize='evolution')`` (the straight engine)
+             with launch counts zeroed just before and read just after,
+             its seconds and device peak recorded (the result goes to the
+             host); then bench-style timed passes through
+             ``IndexedEvolver``, paired (``pair_matrix_gates``) and
+             unpaired; a paired pass may take at most 1.1x its unpaired
+             one.  Then straight passes and ``simulate`` at n = 31 and 32.
+             ``apply_bits`` is then replayed at the most frequent gate
+             size the main path gave it and held against its plain
+             version.  Also the first
              ``simulate`` once more with ``profile_dir``: the device
              operations of its Chrome trace by name, and the share of its
              seconds the card was busy (the rest is the host's).
@@ -294,10 +292,6 @@ _PEAKS = {'H100 PCIe': (2.0e12, 51.2e12, 378e12),
 KERNEL_INFO = {
     'apply_bits': ('hybridq_tpu_torch/csrc/fused_apply.cu',
                    'hybridq_tpu/simulation/pallas_fused.py:175'),
-    'fused_apply': ('hybridq_tpu_torch/csrc/fused_apply.cu',
-                    'hybridq_tpu/simulation/pallas_fused.py:175'),
-    'swap_apply': ('hybridq_tpu_torch/csrc/fused_apply.cu',
-                   'hybridq_tpu/simulation/pallas_fused.py:446'),
     'apply_gate_rows': ('hybridq_tpu_torch/csrc/fused_apply.cu',
                         'hybridq_tpu/simulation/pallas_kernels.py:201'),
     'factored_apply': ('hybridq_tpu_torch/csrc/factored_apply.cu',
@@ -510,9 +504,9 @@ def step_host_ms():
     """Host time (ms) of one memoized ``apply_gate`` step at n = N_STEP,
     where the kernel itself takes microseconds."""
     import torch
-    from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
+    from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
 
-    ev = FusedEvolver(N_STEP, device='cuda')
+    ev = IndexedEvolver(N_STEP, device='cuda')
     st = ev.prepare_state('0' * N_STEP)
     U = rand_unitary(1, np.random.default_rng(SEED))
     for _ in range(10):
@@ -582,7 +576,6 @@ def ptxas_entries(logs):
 
 def phase_kernels(out, name):
     import torch
-    from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
 
     n = N_KERNELS
     rng = np.random.default_rng(SEED)
@@ -628,26 +621,12 @@ def phase_kernels(out, name):
             check(r['rel_err'] <= TOL, f"apply_bits k={k} bits={bits}: "
                   f"max|d|/rms {r['rel_err']:.3g} > {TOL}")
             straight.setdefault(k, {})[min(low, 7)] = round(r['ms'], 3)
-    # park by row gather (inplace=False): the cost of a ('park',) step
-    ev = FusedEvolver(n, device='cuda', inplace=False)
-    st = ev.prepare_state('0' * n)
-    perm = list(range(n))
-    perm[n - 1], perm[8] = 8, n - 1
-
-    def gather_rows():
-        nonlocal st
-        ev.phys, ev.logi = list(range(n)), list(range(n))
-        st = ev._row_permute(st, perm)
-    park_ms = time_ms(gather_rows, REPS)
-    del st
-    torch.cuda.empty_cache()
     emit({'phase': 'kernels', 'ok': True, 'n': n, 'card': card_power(),
           'step_costs': {
               'fused': {r['k']: round(r['ms'], 3) for r in rows
                         if r['kind'] == 'fused_k'},
               'swap': {f"{r['k']},{r['cls'][1]}": round(r['ms'], 3)
                        for r in rows if r['kind'] == 'swap'},
-              'park': round(park_ms, 3),
               # apply_bits ms by k and lowest gate bit (7: all >= 7)
               'straight': straight,
               # group_apply_kernel per k: time against both bounds
@@ -677,9 +656,7 @@ def numpy_oracle(circuit, qubits):
 
 
 # the kernels each engine of simulate launches
-ENGINE_KERNELS = {'indexed': ('apply_bits',),
-                  'fused': ('fused_apply', 'swap_apply'),
-                  'torch': (), 'einsum': ()}
+ENGINE_KERNELS = {'indexed': ('apply_bits',), 'torch': (), 'einsum': ()}
 
 
 def check_engine_launches(where, engine, launches):
@@ -699,8 +676,8 @@ def phase_parity(out):
     from hybridq_tpu_torch.simulation import simulate
 
     n = N_PARITY
-    runs = [('evolution', 'complex64'), ('evolution-fused', 'complex64'),
-            ('evolution-einsum', 'complex64'), ('evolution', 'complex128')]
+    runs = [('evolution', 'complex64'), ('evolution-einsum', 'complex64'),
+            ('evolution', 'complex128')]
     for depth in PARITY_GATES:
         np.random.seed(SEED)
         c = Circuit([Gate('H', qubits=[q]) for q in range(n)]) + \
@@ -770,7 +747,6 @@ def phase_paths(out, name):
     from hybridq_tpu_torch.probes import fused_k4
     from hybridq_tpu_torch.simulation import fused_kernels as fk
     from hybridq_tpu_torch.simulation import row_kernels as rk
-    from hybridq_tpu_torch.simulation.fused_evolver import FusedEvolver
 
     n = N_PATHS
     card = card_power()
@@ -812,7 +788,6 @@ def phase_paths(out, name):
         lambda st, c: fk.apply_factored(st[0], c[2], c[0], c[3], c[1]),
         container)
     rows = []
-    ev = FusedEvolver(n, device='cuda')
     for row_bits, lane_bits, Ur, Ul in fact:
         kr, kl = len(row_bits), len(lane_bits)
         r = hold(container,
@@ -845,9 +820,11 @@ def phase_paths(out, name):
         del st, ops
         torch.cuda.empty_cache()
         if kl <= 2:
-            # the swap route of the same gate, as FusedEvolver takes it
+            # the swap route of the same gate, as the JAX fused engine
+            # takes it from the canonical layout: the lowest free bits
+            # >= 12 are the victims
             bits = list(row_bits) + list(lane_bits)
-            victims = ev._victims(kl, set(bits))
+            victims = [b for b in range(12, n) if b not in bits][:kl]
             U = torch.kron(Ur, Ul)
             st = rand_state(n, gen)
             r['swap_ms'] = time_ms(
@@ -1276,10 +1253,8 @@ def drive_simulate(gates, n, optimize, idx):
 
 
 def timed_passes(ev, state, items, tag):
-    """Warm passes until the slot map repeats at a pass boundary (every
-    operand is then uploaded; one pass for the straight engine), then
-    ``REPS`` timed passes; returns the state, seconds a pass, warm passes
-    and launches a pass."""
+    """One warm pass (every operand is then uploaded), then ``REPS`` timed
+    passes; returns the state, seconds a pass and launches a pass."""
     import torch
     from hybridq_tpu_torch.simulation import fused_kernels as fk
 
@@ -1289,15 +1264,7 @@ def timed_passes(ev, state, items, tag):
                                   gate_key=(tag, i))
         return state
 
-    phys = getattr(ev, 'phys', None)
-    seen = {tuple(phys or ())}
-    warm = 0
-    for warm in range(1, 13):
-        state = run_pass(state)
-        key = tuple(getattr(ev, 'phys', None) or ())
-        if key in seen:
-            break
-        seen.add(key)
+    state = run_pass(state)
     torch.cuda.synchronize()
     fk.reset_counts()
     t0 = time.perf_counter()
@@ -1305,14 +1272,11 @@ def timed_passes(ev, state, items, tag):
         state = run_pass(state)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / REPS
-    return state, dt, warm, {k: v / REPS for k, v in fk.counts().items()
-                             if v}
+    return state, dt, {k: v / REPS for k, v in fk.counts().items() if v}
 
 
 def phase_main_path(out, name):
     import torch
-    from hybridq_tpu_torch.simulation import fused_evolver as fe
-    from hybridq_tpu_torch.simulation import fused_kernels as fk
     from hybridq_tpu_torch.simulation import kernels as ik
 
     n = N_MAIN
@@ -1321,61 +1285,17 @@ def phase_main_path(out, name):
     gates = bench_workload(n, 4, MAIN_GATES, rng)
     idx = np.random.default_rng(SEED + 1).choice(2 ** n, 16, replace=False)
 
-    # (a) the user's entry point, then the fused route through it
+    # (a) the user's entry point
     sim, amps_sim = drive_simulate(gates, n, 'evolution', idx)
     emit({'phase': 'main_path', 'part': 'simulate', **sim, 'card': card},
          out)
-    sim_fused, amps_fused = drive_simulate(gates, n, 'evolution-fused', idx)
-    emit({'phase': 'main_path', 'part': 'simulate', **sim_fused,
-          'card': card}, out)
-    d_sim = max(abs(amps_sim[i] - amps_fused[i]) for i in amps_sim)
-    check(d_sim <= 1e-6, f"main_path: 'evolution' and 'evolution-fused' "
-          f"disagree ({d_sim:.3g})")
     torch.cuda.empty_cache()
-    # the first call again, under torch.profiler through profile_dir
+    # the same call again, under torch.profiler through profile_dir
     emit({'phase': 'main_path', 'part': 'profile', 'n': n,
           **profiled_simulate(gates, n), 'card': card}, out)
     torch.cuda.empty_cache()
 
-    # (b) bench-style passes through FusedEvolver, never flushing, and
-    # (c) through IndexedEvolver, in one run
-    ev = fe.FusedEvolver(n, device='cuda')
-    blocks = fe.pair_fused_gates(gates, n, fe.MapSim.of(ev))
-
-    def no_flush(*_):
-        raise PhaseError("main_path: flush/gather called at n=30")
-    ev.flush = no_flush
-    calls = []
-
-    def recorder(kind, fn):
-        def wrapped(state, U, *rest):
-            calls.append((kind, U, [list(r) for r in rest]))
-            return fn(state, U, *rest)
-        return wrapped
-    orig = fe.apply_fused, fe.apply_swap
-    fe.apply_fused = recorder('fused', fk.apply_fused)
-    fe.apply_swap = recorder('swap', fk.apply_swap)
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        state = ev.prepare_state('0' * n)
-        for i, (U, qs) in enumerate(blocks):
-            state = ev.apply_gate(state, np.asarray(U), tuple(qs),
-                                  gate_key=('blk', i))
-    finally:
-        fe.apply_fused, fe.apply_swap = orig
-    d_amp = max(abs(ev.amplitude(state, int(i)) - amps_sim[int(i)])
-                for i in idx)
-    check(d_amp <= 1e-6, f"main_path: evolver and simulate disagree "
-          f"({d_amp:.3g})")
-    state, dt, warm, pass_launches = timed_passes(ev, state, blocks, 'blk')
-    # the same gates unpaired, one kernel class per 4-qubit gate
-    state, dt_single, _, _ = timed_passes(ev, state, gates, 'gate')
-    peak_ev = torch.cuda.max_memory_allocated()
-    norm_ev = torch.linalg.vector_norm(state).item()
-    del state, ev
-    torch.cuda.empty_cache()
-    check(abs(norm_ev - 1) <= NORM_TOL, f"main_path: norm {norm_ev}")
-
+    # (b) bench-style passes through IndexedEvolver, paired and unpaired
     straight = ik.pair_matrix_gates(gates, n)
     sev = ik.IndexedEvolver(n, device='cuda')
     torch.cuda.reset_peak_memory_stats()
@@ -1387,8 +1307,8 @@ def phase_main_path(out, name):
                for i in idx)
     check(d_st <= 1e-6, f"main_path: straight evolver and simulate "
           f"disagree ({d_st:.3g})")
-    state, dt_st, _, st_launches = timed_passes(sev, state, straight, 'st')
-    state, dt_st_single, _, _ = timed_passes(sev, state, gates, 'sg')
+    state, dt_st, st_launches = timed_passes(sev, state, straight, 'st')
+    state, dt_st_single, _ = timed_passes(sev, state, gates, 'sg')
     peak_st = torch.cuda.max_memory_allocated()
     norm_st = torch.linalg.vector_norm(state).item()
     del state
@@ -1397,14 +1317,6 @@ def phase_main_path(out, name):
           f"{norm_st}")
     emit({'phase': 'main_path', 'part': 'passes', 'n': n,
           'gates': len(gates),
-          'fused': {'blocks': len(blocks),
-                    'block_sizes': sorted(len(q) for _, q in blocks),
-                    'warm_passes': warm, 'pass_s': dt,
-                    'gates_per_s': len(gates) / dt,
-                    'launches_per_pass': pass_launches,
-                    'unpaired_pass_s': dt_single,
-                    'unpaired_gates_per_s': len(gates) / dt_single,
-                    'norm': norm_ev, 'peak_gib': peak_ev / 2 ** 30},
           'straight': {'blocks': len(straight),
                        'block_sizes': sorted(len(q) for _, q in straight),
                        'pass_s': dt_st, 'gates_per_s': len(gates) / dt_st,
@@ -1412,24 +1324,20 @@ def phase_main_path(out, name):
                        'unpaired_pass_s': dt_st_single,
                        'unpaired_gates_per_s': len(gates) / dt_st_single,
                        'norm': norm_st, 'peak_gib': peak_st / 2 ** 30},
-          'straight_over_fused': dt_st / dt,
-          'amp_diff_vs_simulate': {'fused': d_amp, 'straight': d_st},
+          'amp_diff_vs_simulate': {'straight': d_st},
           'card': card}, out)
-    check(dt <= PAIRED_SLACK * dt_single,
-          f"main_path: the paired pass ({dt:.4f} s) is slower than the "
-          f"unpaired one ({dt_single:.4f} s)")
     check(dt_st <= PAIRED_SLACK * dt_st_single,
           f"main_path: the paired straight pass ({dt_st:.4f} s) is slower "
           f"than the unpaired one ({dt_st_single:.4f} s)")
 
-    # (d) past n = 30: straight passes and simulate
+    # (c) past n = 30: straight passes and simulate
     for m in N_WIDE:
         wide = bench_workload(m, 4, MAIN_GATES, np.random.default_rng(SEED))
         items = ik.pair_matrix_gates(wide, m)
         wev = ik.IndexedEvolver(m, device='cuda')
         torch.cuda.reset_peak_memory_stats()
         state = wev.prepare_state('0' * m)
-        state, dt_m, _, _ = timed_passes(wev, state, items, 'w')
+        state, dt_m, _ = timed_passes(wev, state, items, 'w')
         peak_m = torch.cuda.max_memory_allocated()
         del state
         torch.cuda.empty_cache()
@@ -1440,38 +1348,25 @@ def phase_main_path(out, name):
               'gates_per_s': len(wide) / dt_m, 'peak_gib': peak_m / 2 ** 30,
               'simulate': sim_m, 'card': card}, out)
 
-    # replay each kernel at the main path's most frequent gate size
+    # replay apply_bits at the main path's most frequent gate size
     gen = torch.Generator(device='cuda')
     gen.manual_seed(SEED)
     sizes = [len(qs) for _, qs in straight]
     k = max(set(sizes), key=sizes.count)
     U, qs = next(b for b in straight if len(b[1]) == k)
-    replays = [('bits', 'apply_bits', np.asarray(U, np.complex64),
-                [n - 1 - q for q in qs], [], sim)]
-    for kind, kname in (('fused', 'fused_apply'), ('swap', 'swap_apply')):
-        mine = [c for c in calls if c[0] == kind]
-        sizes = [len(c[2][0]) for c in mine]
-        k = max(set(sizes), key=sizes.count)
-        _, U, rest = next(c for c in mine if len(c[2][0]) == k)
-        replays.append((kind, kname, U.cpu().numpy(), rest[0],
-                        rest[1] if kind == 'swap' else [], sim_fused))
-    summary = []
-    for kind, kname, U, bits, victims, path in replays:
-        r = compare_kernel(n, kind, U, bits, victims, gen, name, REPS)
-        emit({'phase': 'main_path_kernel', 'name': kname, 'n': n,
-              'k': len(bits), 'bits': bits, 'victims': victims, **r}, out)
-        check(r['rel_err'] <= TOL, f"{kname} at n={n}: max|d|/rms "
-              f"{r['rel_err']:.3g} > {TOL}")
-        src, replaces = KERNEL_INFO[kname]
-        summary.append({'name': kname, 'route': 'cuda', 'source': src,
-                        'replaces': replaces,
-                        'launches': path['launches'][kname],
-                        'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-                        'plain_ms': r['plain_ms'],
-                        'bound_ms': r['bound_ms'],
-                        'bound_by': r['bound_by'],
-                        'library_ms': r['library_ms']})
-    return summary
+    bits = [n - 1 - q for q in qs]
+    r = compare_kernel(n, 'bits', np.asarray(U, np.complex64), bits, [], gen,
+                       name, REPS)
+    emit({'phase': 'main_path_kernel', 'name': 'apply_bits', 'n': n,
+          'k': len(bits), 'bits': bits, 'victims': [], **r}, out)
+    check(r['rel_err'] <= TOL, f"apply_bits at n={n}: max|d|/rms "
+          f"{r['rel_err']:.3g} > {TOL}")
+    src, replaces = KERNEL_INFO['apply_bits']
+    return [{'name': 'apply_bits', 'route': 'cuda', 'source': src,
+             'replaces': replaces, 'launches': sim['launches']['apply_bits'],
+             'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+             'plain_ms': r['plain_ms'], 'bound_ms': r['bound_ms'],
+             'bound_by': r['bound_by'], 'library_ms': r['library_ms']}]
 
 
 def noisy_rqc(n, depth):
@@ -2192,7 +2087,7 @@ def sharded_full_width(m, gates, n, name):
     pass_s = (time.perf_counter() - t0) / REPS
     pass_ex = (ev.exchanges - ex0) / REPS
     S = sev.prepare_state('0' * n)
-    S, straight_s, _, _ = timed_passes(sev, S, gates, 'sh')
+    S, straight_s, _ = timed_passes(sev, S, gates, 'sh')
     del S, sev
     torch.cuda.empty_cache()
     # one exchange, timed: swap global bit 0 with slot 0 an even number

@@ -8,8 +8,8 @@ nor ``hybridq_tpu``.
 
 Engines:
   * state-vector evolution  — `hybridq_tpu_torch.simulation.simulate`
-    (complex64 on the straight engine or the fused one, complex128 on
-    plain PyTorch)
+    (complex64 on the straight engine, one `apply_bits` launch a
+    block, for every `'evolution'` name; complex128 on plain PyTorch)
   * density matrices        — `hybridq_tpu_torch.dm.simulate`, with the
     noise channels of `hybridq_tpu_torch.noise`
   * tensor networks         — `simulate(..., optimize='tn')`: host path
@@ -22,7 +22,9 @@ Engines:
   * command lines           — `hybridq_tpu_torch.cli` (`main`, `main_dm`)
 
 Kernels off the engine's path: `simulation.apply_factored`,
-`simulation.apply_gate_rows` and the probe `probes.apply_fused_k4`.
+`simulation.apply_gate_rows`, `fused_kernels.apply_fused` and
+`apply_swap` (the TPU engine's in-place kernels, ported alone) and the
+probe `probes.apply_fused_k4`.
 """
 
 __version__ = '0.1.0'

@@ -41,8 +41,7 @@ def state_from_reference(container: np.ndarray,
                          phys: Sequence[int] = None, device=None):
     """A JAX engine's state -> ``(state, phys, logi)`` on ``device``:
     the fused engine's container (``[2^(n-6), 128]`` f32) with its slot
-    map ``phys``, for a port ``FusedEvolver`` (assign ``ev.phys, ev.logi =
-    phys, logi``); or ``IndexedEvolver``'s flushed ``[2, 2^n]`` pair with
+    map ``phys``; or ``IndexedEvolver``'s flushed ``[2, 2^n]`` pair with
     ``phys=None`` (canonical: the identity), for the port's
     ``IndexedEvolver``.  ``device=None`` means ``'cuda'``, which raises
     without a card (pass ``device='cpu'``)."""

@@ -1,9 +1,10 @@
 """Simulation engines: state-vector evolution on CUDA kernels (the
-straight engine and the fused one) and on plain PyTorch (small registers,
-complex128, ``torch.einsum``, CPU), tensor-network contraction
-(``simulation.tn``), batched noise trajectories (``trajectories``) and
-Clifford expansion (``clifford``); the gate kernels' public functions
-beside the engines'."""
+straight engine, ``kernels.IndexedEvolver``, which serves
+``'evolution'``, ``'evolution-indexed'`` and ``'evolution-fused'``) and
+on plain PyTorch (small registers, complex128, ``torch.einsum``, CPU),
+tensor-network contraction (``simulation.tn``), batched noise
+trajectories (``trajectories``) and Clifford expansion (``clifford``);
+the gate kernels' public functions beside the engines'."""
 
 from hybridq_tpu_torch.simulation.prepare import prepare_state
 from hybridq_tpu_torch.simulation.simulation import (simulate,

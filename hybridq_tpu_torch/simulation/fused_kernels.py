@@ -18,7 +18,8 @@ Four wrappers, each with a plain PyTorch version beside it:
     1-2 of which are lane bits (< 7), and stores amplitude ``p`` at
     ``sigma(p)``, where sigma swaps lane bit ``a_j`` (lane bits sorted
     descending) with victim bit ``victims[j]`` (>= 12).  The caller
-    records the relabel in its slot map;
+    records the relabel in its slot map, as JAX's fused engine does; no
+    engine of this package calls it;
   * ``apply_factored(state, U_row, row_bits, U_lane, lane_bits)`` applies
     ``U_row (x) U_lane`` to ``row_bits + lane_bits`` (row bits >= 7, lane
     bits < 7), the counterpart of ``pallas_fused.factored_kernel``.

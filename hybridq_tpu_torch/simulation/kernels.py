@@ -2,8 +2,8 @@
 
 The counterpart of ``hybridq_tpu/simulation/kernels.py``'s
 ``IndexedEvolver`` (``:426``) and ``pair_matrix_gates`` (``:351``).  The
-state is the fused engine's split container (``2^(n+1)`` f32, re half then
-im half), always in canonical bit order: every gate is one in-place
+state is the JAX fused engine's split container (``2^(n+1)`` f32, re half
+then im half), always in canonical bit order: every gate is one in-place
 ``fused_kernels.apply_bits`` launch at its flat bits ``n - 1 - q``,
 whichever they are, lane bits 0-6 included.  There is no slot map, so no
 victims, parks, lane eviction or flush; ``flush`` is the identity.
@@ -15,10 +15,10 @@ contiguous rows), and the compile amortisation around them
 ``warm``, ``calibrate``).  ``hq_group_apply`` takes its bit positions as
 arguments, so one build serves every gate.
 
-``pair_matrix_gates`` fuses gates into blocks of up to 8 qubits when one
-launch of the larger block costs less than two, on the straight cost of
-``straight_cost``: ``pair_fused_gates`` on a scheduler whose route is a
-single ``apply_bits`` step and whose layout never changes.
+``pair_matrix_gates`` is the scheduler: a greedy that fuses gates into
+blocks of up to 8 qubits when one launch of the larger block costs less
+than the launches it replaces, priced by ``straight_cost``.  The layout
+never changes, so a gate's cost depends on its own bits alone.
 """
 
 from __future__ import annotations
@@ -48,13 +48,17 @@ def _compose_matrix_gates(items):
 
 # -- cost of one apply_bits launch -------------------------------------
 #
-# ms of one launch at n = fused_evolver._COST_N by gate size k and the
-# class of the lowest gate bit: 0, 1, 2, 3 (bits 3-6) and 7 (all >= 7).  A
-# low bit shortens the contiguous runs of a gate row (2^low floats), which
-# costs the tiles of group_apply_kernel (k >= 6) up to 32% and the columns
-# of column_apply_kernel up to 9%.  Measured by chip_smoke.py's `kernels`
-# phase (its `straight` table) on an NVIDIA H100 80GB HBM3 at a 700 W
-# power limit; PERF.md names the run.
+# ms of one launch at n = _COST_N by gate size k and the class of the
+# lowest gate bit: 0, 1, 2, 3 (bits 3-6) and 7 (all >= 7).  A low bit
+# shortens the contiguous runs of a gate row (2^low floats), which costs
+# the tiles of group_apply_kernel (k >= 6) up to 32% and the columns of
+# column_apply_kernel up to 9%.  Every launch streams the whole state once,
+# so the kernel's time scales by 2^(n - _COST_N); _STEP_MS is the host
+# time of one step, which no n scales.  Measured by chip_smoke.py's
+# `kernels` phase (its `straight` table and `step_ms`) on an NVIDIA H100
+# 80GB HBM3 at a 700 W power limit; PERF.md names the run.
+_COST_N = 28
+_STEP_MS = 0.0685
 _STRAIGHT_COST = {
     1: {0: 1.458, 1: 1.453, 2: 1.508, 3: 1.453, 7: 1.455},
     2: {0: 1.518, 1: 1.481, 2: 1.502, 3: 1.463, 7: 1.544},
@@ -66,14 +70,16 @@ _STRAIGHT_COST = {
     8: {0: 8.487, 1: 7.707, 2: 8.306, 3: 7.857, 7: 7.782},
 }
 
+# A merge must save 0.16 of one one-qubit launch.  That launch is priced
+# at 1.446 ms, the one-qubit cost the cells' schedules were built with
+# (not _STRAIGHT_COST's own, which would move the threshold).
+_MERGE_FLOOR_1Q_MS = 1.446
+
 
 def straight_cost(n: int, bits) -> float:
     """Cost (ms) of one ``apply_bits`` launch on flat ``bits`` at ``n``
     qubits: host step plus the kernel's time, scaled from ``_COST_N`` by
-    the state's size."""
-    from hybridq_tpu_torch.simulation.fused_evolver import (_COST_N,
-                                                            _STEP_MS)
-
+    the state's size; ``inf`` past 8 bits."""
     low = min(bits)
     row = _STRAIGHT_COST.get(len(bits))
     if row is None:
@@ -82,36 +88,53 @@ def straight_cost(n: int, bits) -> float:
     return _STEP_MS + base * 2.0 ** (n - _COST_N)
 
 
-class _StraightSim:
-    """The scheduler's view of the straight route for
-    ``pair_fused_gates``: every gate is one launch at its own bits, and
-    the layout never changes."""
-
-    __slots__ = ('n',)
-    high = False        # read by pair_fused_gates; one kernel either way
-
-    def __init__(self, n):
-        self.n = n
-
-    def clone(self):
-        return self
-
-    def route_gate(self, qubits):
-        return [('bits', len(qubits))]
-
-    def route_cost(self, qubits) -> float:
-        return straight_cost(self.n, [self.n - 1 - q for q in qubits])
-
-
 def pair_matrix_gates(items, n: int, max_k: int = 8):
     """Fuse gates into larger blocks when one straight launch of the
     block costs less than the launches it replaces.  ``items`` is a list
     of ``(U, qs)`` with dense qubit indices; gates may jump over earlier
-    gates they commute with (disjoint supports).  Returns a new ``(U, qs)``
-    list."""
-    from hybridq_tpu_torch.simulation.fused_evolver import pair_fused_gates
+    gates they commute with (disjoint supports).  Greedy: each block
+    takes, while it has fewer than ``max_k`` qubits, the gate whose merge
+    saves the most, if that beats the merge floor.  Returns a new
+    ``(U, qs)`` list."""
+    items = list(items)
 
-    return pair_fused_gates(items, n, _StraightSim(n), max_k)
+    def cost(qs):
+        return straight_cost(n, [n - 1 - q for q in qs])
+
+    gate_cost = [cost(qs) for _, qs in items]
+    min_profit = 0.16 * (_STEP_MS + _MERGE_FLOOR_1Q_MS *
+                         2.0 ** (n - _COST_N))
+    used = [False] * len(items)
+    out = []
+    for i in range(len(items)):
+        if used[i]:
+            continue
+        used[i] = True
+        cur = [items[i]]
+        qs_set = set(items[i][1])
+        c_cur = gate_cost[i]
+        while len(qs_set) < max_k:
+            # a later gate may join only past gates disjoint from it
+            blocked: set = set()
+            best, best_profit = None, min_profit
+            for j in range(i + 1, len(items)):
+                if used[j]:
+                    continue
+                qsj = set(items[j][1])
+                union = qs_set | qsj
+                if not qsj & blocked and len(union) <= max_k:
+                    c_union = cost(union)
+                    profit = c_cur + gate_cost[j] - c_union
+                    if profit > best_profit:
+                        best, best_profit = (j, union, c_union), profit
+                blocked |= qsj
+            if best is None:
+                break
+            j, qs_set, c_cur = best
+            used[j] = True
+            cur.append(items[j])
+        out.append(cur[0] if len(cur) == 1 else _compose_matrix_gates(cur))
+    return out
 
 
 def _torch_complex(complex_type):

@@ -5,15 +5,19 @@ The counterpart of ``hybridq_tpu/simulation/simulation.py`` (its
 
   * ``'evolution'`` / ``'evolution-tpu'`` / ``'evolution-hybridq'``: the
     native engine.  On a CUDA device with >= 20 qubits in complex64 it is
-    ``ENGINE_ON_CARD`` (the straight engine, ``IndexedEvolver``, one
-    ``apply_bits`` launch a block); otherwise one ``tensordot`` per gate
-    block on a complex ``(2,)*n`` tensor (``statevector``).
+    the straight engine (``kernels.IndexedEvolver``, one ``apply_bits``
+    launch a block paired by ``kernels.pair_matrix_gates``); otherwise one
+    ``tensordot`` per gate block on a complex ``(2,)*n`` tensor
+    (``statevector``).  ``fused_engine=False`` keeps it off the straight
+    engine.
   * ``'evolution-indexed'``: the straight engine at any n.
-  * ``'evolution-fused'`` (or ``fused_engine=True``): ``FusedEvolver``,
-    the route that mirrors the TPU engine's slots, victims and parks.
+  * ``'evolution-fused'`` (from ``MIN_FUSED_QUBITS`` qubits; below, a
+    ``ValueError``) and ``fused_engine=True`` (from ``MIN_FUSED_QUBITS``
+    qubits): the straight engine too, the one state-vector engine of the
+    card.  ``info['engine']`` is ``'indexed'``.
   * ``complex_type='complex128'``: the per-gate ``statevector`` path in
     complex128 on the device (JAX sends it to host numpy einsum, the
-    reference), except under ``'evolution-fused'``, which runs its f32
+    reference), except under ``'evolution-fused'``, which runs the f32
     kernels and gathers the result to complex128, as JAX does.
   * ``'evolution-einsum[-<opt>]'``: one ``torch.einsum`` a block.
   * any other ``optimize`` (``'tn'``, or ``(info, tree)`` with a
@@ -49,10 +53,8 @@ __all__ = ['simulate', 'expectation_value']
 
 _COMPLEX_TYPES = (np.dtype('complex64'), np.dtype('complex128'))
 
-# The engine of 'evolution' on a CUDA device from 20 qubits in complex64:
-# 'indexed' (the straight route) or 'fused' (FusedEvolver).  PERF.md
-# records the chip_smoke.py main_path run that chose it.
-ENGINE_ON_CARD = 'indexed'
+# The fewest qubits 'evolution-fused' takes, as in the JAX engine.
+MIN_FUSED_QUBITS = 14
 
 
 def _preprocess_circuit(circuit, initial_state, final_state, simplify,
@@ -250,8 +252,8 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
 
     engine = _engine(sub, n_qubits, complex_type, device, kwargs)
     info['engine'] = engine
-    evolve = {'fused': _evolve_fused, 'indexed': _evolve_indexed,
-              'torch': _evolve_torch, 'einsum': _evolve_einsum}[engine]
+    evolve = {'indexed': _evolve_indexed, 'torch': _evolve_torch,
+              'einsum': _evolve_einsum}[engine]
     t0 = _time_mod.time()
     psi = evolve(blocks, qubits, qubit_index, initial_state, complex_type,
                  device, kwargs)
@@ -269,26 +271,25 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
 
 
 def _engine(sub, n_qubits, complex_type, device, kwargs) -> str:
-    """'fused', 'indexed', 'einsum' or 'torch' (the per-gate
-    ``statevector`` path) for ``optimize='evolution-<sub>'``; see the
-    module docstring."""
-    from hybridq_tpu_torch.simulation.fused_evolver import MIN_FUSED_QUBITS
-
+    """'indexed', 'einsum' or 'torch' (the per-gate ``statevector``
+    path) for ``optimize='evolution-<sub>'``; see the module
+    docstring."""
     if sub == 'fused':
-        return 'fused'
+        if n_qubits < MIN_FUSED_QUBITS:
+            raise ValueError(f"optimize='evolution-fused' needs n >= "
+                             f"{MIN_FUSED_QUBITS} qubits, got {n_qubits}")
+        return 'indexed'
     if sub.split('-')[0] == 'einsum':
         return 'einsum'
     if complex_type == np.dtype('complex128'):
         return 'torch'
     fused = kwargs.get('fused_engine')
-    if fused and n_qubits >= MIN_FUSED_QUBITS:
-        return 'fused'
-    if sub == 'indexed':
+    if sub == 'indexed' or (fused and n_qubits >= MIN_FUSED_QUBITS):
         return 'indexed'
     if fused is None and device.type == 'cuda' and n_qubits >= 20 and \
             kwargs.get('matmul_precision', 'highest') in ('highest',
                                                           'high'):
-        return ENGINE_ON_CARD
+        return 'indexed'
     return 'torch'
 
 
@@ -427,41 +428,6 @@ def _block_items(payload, complex_type, qubit_index):
             items.append((np.ascontiguousarray(g.matrix()),
                           tuple(qubit_index[q] for q in g.qubits)))
     return items
-
-
-def _evolve_fused(blocks, qubits, qubit_index, initial_state,
-                  complex_type, device, kwargs):
-    """Fused engine (``fused_evolver.py``): a cost-model-paired schedule
-    of in-place gate kernels."""
-    from hybridq_tpu_torch.simulation.fused_evolver import (FusedEvolver,
-                                                            MapSim,
-                                                            pair_fused_gates)
-
-    n_qubits = len(qubits)
-    ev = FusedEvolver(n_qubits,
-                      precision=kwargs.get('matmul_precision', 'highest'),
-                      device=device)
-    if isinstance(initial_state, str):
-        state = ev.prepare_state(initial_state)
-    else:
-        state = ev.pack(np.asarray(initial_state))
-
-    for seg, (kind, payload) in enumerate(_segment_blocks(blocks)):
-        if kind == 'mat':
-            items = _block_items(payload, complex_type, qubit_index)
-            with span('hq.pair'):
-                items = pair_fused_gates(items, n_qubits, MapSim.of(ev))
-            # The key names the segment too: after a flush the map is
-            # canonical again, and block i of a later segment must not
-            # hit block i of an earlier one in the prep memo.
-            for i, (U, qs) in enumerate(items):
-                state = ev.apply_gate(state, np.asarray(U), tuple(qs),
-                                      gate_key=('blk', seg, i))
-        else:
-            psi = ev.gather(state)
-            del state
-            state = ev.pack(_host_round_trip(payload, psi, qubits))
-    return ev.gather(state, complex_type)
 
 
 def _evolve_indexed(blocks, qubits, qubit_index, initial_state,

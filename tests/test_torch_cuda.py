@@ -18,16 +18,21 @@ import numpy as np
 import pytest
 import torch
 
+from hybridq_tpu_torch import Circuit, Gate
+from hybridq_tpu_torch.convert import circuit_from_matrices
 from hybridq_tpu_torch.probes import bw, fused_k4, gather
 from hybridq_tpu_torch.simulation import fused_kernels as fk
 from hybridq_tpu_torch.simulation import row_kernels as rk
-from hybridq_tpu_torch.simulation.fused_evolver import _SW, FusedEvolver
+from hybridq_tpu_torch.simulation import simulate
 from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
 from tests.test_torch_dot_host import tf32_round
 
 ATOL = 1e-5
 FUSED_CLASSES = [0, 1, 2, 3, 4]
 SWAP_CLASSES = [(1, 1), (2, 1), (3, 1), (4, 1), (2, 2), (3, 2), (4, 2)]
+# SWAP of two bits, the factor of the pair-SWAP permutation of a park
+_SW = np.array([[1, 0, 0, 0], [0, 0, 1, 0],
+                [0, 1, 0, 0], [0, 0, 0, 1]], dtype=np.complex64)
 
 pytestmark = pytest.mark.gpu
 
@@ -132,23 +137,25 @@ def test_cuda_fused_every_gate_size(k, kv, cuda):
 
 
 def test_cuda_evolver_matches_cpu_evolver(cuda):
-    """Same gates on the card and on the host: same routing, same
-    containers within f32 rounding."""
+    """``simulate(optimize='evolution-fused')`` on the card and on the
+    host, after an H layer: the same amplitudes within f32 rounding,
+    ``apply_bits`` launched on the card."""
     n = 18
     rng = np.random.default_rng(7)
-    ev_c, ev_h = FusedEvolver(n, device=cuda), FusedEvolver(n, device='cpu')
-    s_c, s_h = ev_c.prepare_state('+' * n), ev_h.prepare_state('+' * n)
+    items = []
     for _ in range(12):
         k = int(rng.integers(1, 5))
         qs = tuple(int(q) for q in rng.choice(n, k, replace=False))
-        U = _rand_u(k, rng)
-        s_c = ev_c.apply_gate(s_c, U, qs)
-        s_h = ev_h.apply_gate(s_h, U, qs)
-        assert ev_c.phys == ev_h.phys
-    assert (s_c.cpu() - s_h).abs().max().item() <= ATOL
-    got = ev_c.gather(s_c).cpu()
-    want = ev_h.gather(s_h)
-    assert (got - want).abs().max().item() <= ATOL
+        items.append((_rand_u(k, rng), qs))
+    c = Circuit([Gate('H', qubits=[q]) for q in range(n)]) + \
+        circuit_from_matrices(items)
+    fk.reset_counts()
+    got, info = simulate(c, initial_state='0' * n, optimize='evolution-fused',
+                         device=cuda, return_info=True)
+    assert info['engine'] == 'indexed' and fk.counts()['apply_bits'] > 0
+    want = simulate(c, initial_state='0' * n, optimize='evolution-fused',
+                    device='cpu')
+    assert np.abs(got - want).max() <= ATOL
 
 
 @pytest.mark.parametrize('n, bits, kv', [
@@ -230,7 +237,8 @@ def test_cuda_indexed_evolver_matches_cpu(cuda):
 @pytest.mark.parametrize('c', [3, 4])
 def test_cuda_park_permutation(c, cuda):
     """An in-place park on 2c = 6 or 8 bits: the pair-SWAP permutation of
-    ``FusedEvolver._park_pass`` through ``apply_fused``, on the tensor
+    the JAX fused engine's ``_park_pass`` through ``apply_fused``, on the
+    tensor
     cores from k = 6 (3xTF32 carries about 2^-22 relative rounding where
     the FMA kernel was exact)."""
     rng = np.random.default_rng(c)

@@ -11,6 +11,9 @@ complex128 products (JAX on host numpy einsum); 5e-5 for the fused
 engines (the JAX suite's bar, ``tests/test_fused_evolver.py``).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +24,7 @@ import hybridq_tpu as J
 import hybridq_tpu_torch as T
 from hybridq_tpu.extras.random import get_rqc as j_rqc
 from hybridq_tpu.simulation import simulate as j_simulate
+from hybridq_tpu.simulation.fused_evolver import FusedEvolver as JFused
 from hybridq_tpu.simulation.kernels import IndexedEvolver as JIndexed
 from hybridq_tpu_torch.convert import (pair_to_reference,
                                        state_from_reference)
@@ -28,7 +32,8 @@ from hybridq_tpu_torch.extras.random import get_rqc as t_rqc
 from hybridq_tpu_torch.simulation import fused_kernels as fk
 from hybridq_tpu_torch.simulation import simulate as t_simulate
 from hybridq_tpu_torch.simulation.kernels import IndexedEvolver as TIndexed
-from hybridq_tpu_torch.simulation.kernels import pair_matrix_gates
+from hybridq_tpu_torch.simulation.kernels import (pair_matrix_gates,
+                                                  straight_cost)
 
 ATOL = 1e-5
 ATOL_C128 = 1e-10
@@ -152,6 +157,71 @@ def test_pair_matrix_gates_matches_unpaired():
     want = _run_jax(items, n, row_bits=10)
     np.testing.assert_allclose(_run_port(paired, n), want, atol=ATOL)
     np.testing.assert_allclose(_run_port(items, n), want, atol=ATOL)
+
+
+def _schedule_cost(items, n):
+    return sum(straight_cost(n, [n - 1 - q for q in qs]) for _, qs in items)
+
+
+@pytest.mark.parametrize('min_bit', [0, 3])
+def test_pairing_on_port_costs(min_bit, seed):
+    """On the straight cost table at n = 30, pairing ``bench.py``-style
+    4-qubit gates (flat bits from ``min_bit`` up) builds no block of 7-8
+    qubits, whose compute-bound launch costs more than the gates it would
+    merge, and never raises the modelled cost of the schedule."""
+    n = 30
+    rng = np.random.default_rng(seed)
+    gates = []
+    for _ in range(24):
+        qs = tuple(int(q) for q in rng.choice(n - min_bit, 4, replace=False))
+        gates.append((_rand_u(4, rng), qs))
+    blocks = pair_matrix_gates(gates, n)
+    assert max(len(q) for _, q in blocks) <= 6
+    assert _schedule_cost(blocks, n) <= _schedule_cost(gates, n)
+
+
+def _cell_items(seed, simplify):
+    """The state-vector cells' circuit ``[seed, 1, 0]`` at 32 qubits
+    (``benchmark/hqbench``, read only) through simulate's front end:
+    ``(U, qs)`` of its 4-qubit compressed blocks."""
+    bench = str(Path(__file__).resolve().parents[1] / 'benchmark')
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from hqbench import circuits, system
+    from hybridq_tpu_torch.circuit import utils
+    from hybridq_tpu_torch.gate import FunctionalGate
+    from hybridq_tpu_torch.simulation.simulation import (_block_items,
+                                                         _preprocess_circuit)
+
+    c = system.circuit(circuits.rqc(32, 14, [seed, 1, 0]))
+    c, qubits, _, _ = _preprocess_circuit(c, '0' * 32, None, simplify, True,
+                                          1e-8, False, False, None)
+    blocks = utils.compress(c, 4, skip_compression=[FunctionalGate])
+    return _block_items(blocks, np.dtype('complex64'),
+                        {q: i for i, q in enumerate(qubits)})
+
+
+@pytest.mark.parametrize('seed_', [0, 7])
+@pytest.mark.parametrize('simplify, compressed, launches',
+                         [(False, 83, 74), (True, 56, 43)])
+def test_cell_schedules(seed_, simplify, compressed, launches):
+    """The n = 32 cells' schedules on the host: 83 compressed blocks
+    paired to 74 launches with ``simplify=False``, 56 to 43 with it (the
+    cells' ``launches_per_circuit``)."""
+    items = _cell_items(seed_, simplify)
+    assert len(items) == compressed
+    assert len(pair_matrix_gates(items, 32)) == launches
+
+
+@pytest.mark.parametrize('tokens', ['0' * 15, '+' * 15,
+                                    ('01+-' * 4)[:15]])
+def test_prepare_state_matches_jax(tokens):
+    """The token product state, bit for bit the JAX fused engine's
+    container (both in canonical order)."""
+    n = len(tokens)
+    got = TIndexed(n, device='cpu').prepare_state(tokens)
+    want = JFused(n, interpret=True).prepare_state(tokens)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).reshape(-1))
 
 
 @pytest.mark.parametrize('k', [1, 3, 5, 8])

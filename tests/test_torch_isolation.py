@@ -54,7 +54,6 @@ def test_no_forbidden_imports_in_source():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, hybridq_tpu_torch, hybridq_tpu_torch.convert, "
             "hybridq_tpu_torch.extras.random, "
-            "hybridq_tpu_torch.simulation.fused_evolver, "
             "hybridq_tpu_torch.simulation.kernels, hybridq_tpu_torch.dm, "
             "hybridq_tpu_torch.noise, hybridq_tpu_torch.noise.channel, "
             "hybridq_tpu_torch.simulation.row_kernels, "

@@ -1,9 +1,10 @@
 """The port's ``simulate`` / ``expectation_value`` against the JAX package.
 
 Each circuit is built twice from one numpy seed, once with each package's
-own copy of ``get_rqc``, so both sides run the same gates.  The fused
-engine runs the plain versions of the port's kernels here and the Pallas
-kernels in interpret mode on the JAX side.  Tolerance: 5e-5 absolute on
+own copy of ``get_rqc``, so both sides run the same gates.
+``'evolution-fused'`` runs the port's straight engine on the plain
+version of ``apply_bits`` here, and JAX's fused engine on its Pallas
+kernels in interpret mode.  Tolerance: 5e-5 absolute on
 the amplitudes (the JAX suite's bar for the fused engine,
 ``tests/test_fused_evolver.py``); 1e-5 where both sides run plain f32
 arithmetic on a unit-norm state.
@@ -18,6 +19,7 @@ import jax.numpy as jnp
 import hybridq_tpu as J
 import hybridq_tpu_torch as T
 from hybridq_tpu.extras.random import get_rqc as j_rqc
+from hybridq_tpu.gate import MatrixGate as JMatrixGate
 from hybridq_tpu.simulation import expectation_value as j_expect
 from hybridq_tpu.simulation import simulate as j_simulate
 from hybridq_tpu.simulation.fused_evolver import FusedEvolver as JEvolver
@@ -27,8 +29,7 @@ from hybridq_tpu_torch.convert import (circuit_from_matrices,
 from hybridq_tpu_torch.extras.random import get_rqc as t_rqc
 from hybridq_tpu_torch.simulation import expectation_value as t_expect
 from hybridq_tpu_torch.simulation import simulate as t_simulate
-from hybridq_tpu_torch.simulation.fused_evolver import \
-    FusedEvolver as TEvolver
+from hybridq_tpu_torch.simulation.kernels import IndexedEvolver as TIndexed
 
 ATOL_FUSED = 5e-5
 ATOL = 1e-5
@@ -54,15 +55,69 @@ def _rand_u(k, rng):
     return np.linalg.qr(m)[0]
 
 
-def test_simulate_fused_matches_jax(seed):
-    n = 15
-    cj, ct = _both_rqc(n, 18, seed)
+def _fused_gate_set(kind, n, rng):
+    """Eight gates that take the JAX fused engine down one of its
+    routes: a 4-qubit gate on four lane bits (flat bits 0-6) first, which
+    it must evict; one on four top-row bits first, which it parks; or
+    random 1-4 qubit gates alone."""
+    first = {'evict': [rng.choice(range(n - 7, n), 4, replace=False)],
+             'park': [rng.permutation(4)], 'random': []}[kind]
+    gates = [(_rand_u(4, rng), tuple(int(q) for q in qs)) for qs in first]
+    while len(gates) < 8:
+        k = int(rng.integers(1, 5))
+        qs = tuple(int(q) for q in rng.choice(n, k, replace=False))
+        gates.append((_rand_u(k, rng), qs))
+    return gates
+
+
+@pytest.mark.parametrize('gate_set', ['evict', 'park', 'random'])
+@pytest.mark.parametrize('n', [16, 17])
+def test_simulate_fused_matches_jax(n, gate_set, seed):
+    """The port's 'evolution-fused' (the straight engine) against JAX's
+    fused engine, after an H layer."""
+    gates = _fused_gate_set(gate_set, n, np.random.default_rng(seed))
+    cj = J.Circuit([J.Gate('H', qubits=[q]) for q in range(n)] +
+                   [JMatrixGate(U).on(list(qs)) for U, qs in gates])
+    ct = T.Circuit([T.Gate('H', qubits=[q]) for q in range(n)]) + \
+        circuit_from_matrices(gates)
     want = j_simulate(cj, optimize='evolution-fused', initial_state='0' * n,
                       fused_interpret=True)
-    got = t_simulate(ct, optimize='evolution-fused', initial_state='0' * n,
-                     device='cpu')
+    got, info = t_simulate(ct, optimize='evolution-fused',
+                           initial_state='0' * n, device='cpu',
+                           return_info=True)
+    assert info['engine'] == 'indexed'
     assert got.shape == (2,) * n and got.dtype == np.complex64
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL_FUSED)
+
+
+def test_simulate_fused_needs_min_qubits(seed):
+    """Below 14 qubits 'evolution-fused' raises, as JAX's engine does;
+    ``fused_engine=True`` falls through to the per-gate path."""
+    n = 13
+    cj, ct = _both_rqc(n, 10, seed)
+    with pytest.raises(ValueError):
+        j_simulate(cj, optimize='evolution-fused', initial_state='0' * n,
+                   fused_interpret=True)
+    with pytest.raises(ValueError, match='evolution-fused'):
+        t_simulate(ct, optimize='evolution-fused', initial_state='0' * n,
+                   device='cpu')
+    _, info = t_simulate(ct, initial_state='0' * n, device='cpu',
+                         fused_engine=True, return_info=True)
+    assert info['engine'] == 'torch'
+
+
+def test_fused_engine_runs_the_straight_engine(seed):
+    """``fused_engine=True`` from 14 qubits is 'evolution-fused': the
+    same engine, the same amplitudes bit for bit."""
+    n = 14
+    _, ct = _both_rqc(n, 20, seed)
+    a, info_a = t_simulate(ct, optimize='evolution-fused',
+                           initial_state='0' * n, device='cpu',
+                           return_info=True)
+    b, info_b = t_simulate(ct, initial_state='0' * n, device='cpu',
+                           fused_engine=True, return_info=True)
+    assert info_a['engine'] == info_b['engine'] == 'indexed'
+    np.testing.assert_array_equal(a, b)
 
 
 def test_simulate_returns_tensor_on_request(seed):
@@ -111,10 +166,10 @@ def test_simulate_with_measure_and_projection(seed):
 
 
 def test_simulate_fused_across_a_projection(seed):
-    """The fused engine flushes, projects on the host and goes on with a
-    new segment of blocks.  Held against JAX's traced engine: JAX's own
-    fused engine keys its operand memo by block index alone and reuses
-    the first segment's operands after the flush."""
+    """'evolution-fused' gathers the state, projects on the host and
+    goes on with a new segment of blocks.  Held against JAX's traced
+    engine: JAX's own fused engine keys its operand memo by block index
+    alone and reuses the first segment's operands after the flush."""
     n = 14
     out = []
     for pkg, rqc in ((J, j_rqc), (T, t_rqc)):
@@ -160,8 +215,9 @@ def test_expectation_value_matches_jax(seed):
 
 
 def test_state_from_reference_round_trip(seed):
-    """Evolve some gates in JAX, carry the state over, finish in the port;
-    compare with an all-JAX run."""
+    """Evolve some gates in JAX's fused engine; its container and slot
+    map go to the port and back unchanged.  Flushed, the container goes
+    on in the port's ``IndexedEvolver``; compare with an all-JAX run."""
     n = 15
     rng = np.random.default_rng(seed)
     gates = []
@@ -176,13 +232,15 @@ def test_state_from_reference_round_trip(seed):
         s_j = ev_j.apply_gate(s_j, U, qs)
     mid = np.asarray(s_j)
 
-    state, phys, logi = state_from_reference(mid, ev_j.phys, device='cpu')
+    state, phys, _ = state_from_reference(mid, ev_j.phys, device='cpu')
     back, phys_back = state_to_reference(state, phys)
     np.testing.assert_array_equal(back, mid)
     assert phys_back == ev_j.phys
 
-    ev_t = TEvolver(n, device='cpu')
-    ev_t.phys, ev_t.logi = phys, logi
+    s_j = ev_j.flush(s_j)
+    state, phys, _ = state_from_reference(np.asarray(s_j), device='cpu')
+    assert phys == ev_j.phys == list(range(n))
+    ev_t = TIndexed(n, device='cpu')
     for U, qs in gates[3:]:
         state = ev_t.apply_gate(state, U, qs)
         s_j = ev_j.apply_gate(jnp.asarray(s_j), U, qs)
