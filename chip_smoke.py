@@ -190,8 +190,14 @@ Phases, each printing one JSON line (a failing phase exits non-zero):
              interpreter a turn; with ``--parent DIR`` (an unpacked copy
              of another commit) in turns with that copy (parent, this,
              this, parent), whose outputs must match gate for gate; and
-             the ``counts()`` of this checkout's scan.  Needs no card, and
-             runs alone without one.
+             the ``counts()`` of this checkout's scan.  Then, on a card,
+             the initial container's fill ``prepare.token_container('0' *
+             32, 32, 'cuda')`` in the same turns: host ms to return, ms to
+             the synchronize after it, device ms of its kernels and copies
+             under ``torch.profiler``, ``prepare.counts()`` of one fill,
+             and a digest of an n = 26 mixed-token container that must
+             match across the turns.  Without a card the fill reads "not
+             measured", and the phase runs alone.
 
 Then the ``{"kernels": [...]}`` summary (of the phases that ran), the
 card's ``name, power.limit`` and, as the last line, ``{"ok": true,
@@ -2497,6 +2503,92 @@ print(json.dumps({'rows': rows, 'counts': counts() if counts else None}))
 """
 
 
+# One turn of ``front_end``'s fill on the card: argv is the checkout and a
+# scratch path for the profiler's trace.  Prints the fill's host and wall
+# ms (3 calls), its device ms (one profiled call), ``prepare.counts()`` of
+# that call (None where the checkout has no counter), the n = 32 zero
+# state's count of nonzeros, its 1-norm and its first amplitude (reduced
+# on the card, with no state-sized temporary), and a digest of a mixed
+# container.
+_FILL_TURN = r"""
+import hashlib, json, os, sys, time
+root, trace_path = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+import torch
+from torch.profiler import ProfilerActivity, profile
+from hybridq_tpu_torch.simulation import prepare
+n, state = 32, '0' * 32
+prepare.token_container('0' * 20, 20, 'cuda')
+torch.cuda.synchronize()
+host, wall = [], []
+for _ in range(3):
+    t = time.perf_counter()
+    c = prepare.token_container(state, n, 'cuda')
+    host.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    wall.append((time.perf_counter() - t) * 1e3)
+    del c
+counts = getattr(prepare, 'counts', None)
+if counts is not None:
+    prepare.reset_counts()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    c = prepare.token_container(state, n, 'cuda')
+    torch.cuda.synchronize()
+fill_counts = counts() if counts is not None else None
+zero = [float(torch.linalg.vector_norm(c, 0)),
+        float(torch.linalg.vector_norm(c, 1)), float(c[0])]
+del c
+prof.export_chrome_trace(trace_path)
+with open(trace_path) as f:
+    events = json.load(f).get('traceEvents', [])
+os.unlink(trace_path)
+dev = [e for e in events
+       if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
+mixed = ('-+01+1-0' * 4)[:26]
+m = prepare.token_container(mixed, 26, 'cuda').cpu().numpy()
+print(json.dumps({'host_ms': host, 'wall_ms': wall,
+                  'device_ms': sum(e['dur'] for e in dev) / 1e3,
+                  'device_ops': len(dev), 'counts': fill_counts,
+                  'zero_nonzeros_first': zero,
+                  'mixed26_sha1': hashlib.sha1(m.tobytes()).hexdigest()}))
+"""
+
+
+def _fill_turns(roots, order):
+    """``_FILL_TURN`` in each of ``roots`` in ``order``: the medians of
+    each side's host and wall ms and its device ms, the change's counts,
+    and whether every turn built the same containers."""
+    import torch
+    from hybridq_tpu_torch.simulation import _build
+
+    if not torch.cuda.is_available():
+        return {'fill': 'not measured (no card)'}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace = str(_build.BUILD_DIR / 'fill_trace.json')
+    turns = {k: [] for k in roots}
+    for side in order:
+        r = subprocess.run([sys.executable, '-c', _FILL_TURN, roots[side],
+                            trace], capture_output=True, text=True,
+                           timeout=600)
+        check(r.returncode == 0,
+              f"front_end: fill turn in {roots[side]} failed: "
+              f"{r.stderr[-2000:]}")
+        turns[side].append(json.loads(r.stdout.strip().splitlines()[-1]))
+    keys = {(t['mixed26_sha1'], tuple(t['zero_nonzeros_first']))
+            for v in turns.values() for t in v}
+    check(len(keys) == 1, f"front_end: the fills differ: {keys}")
+    line = {'fill_counts': turns['change'][0]['counts'],
+            'fill_same_container': True}
+    for side, v in turns.items():
+        pre = '' if side == 'change' else 'parent_'
+        for key in ('host_ms', 'wall_ms'):
+            line[f'{pre}fill_{key}'] = float(np.median(
+                [x for t in v for x in t[key]]))
+        line[f'{pre}fill_device_ms'] = [t['device_ms'] for t in v]
+    return line
+
+
 def phase_front_end(out, parent):
     here = os.path.dirname(os.path.abspath(__file__))
     bench = os.path.join(here, 'benchmark')
@@ -2542,6 +2634,7 @@ def phase_front_end(out, parent):
                      'speedup': [p / c for p, c in
                                  zip(best['parent'], best['change'])],
                      'same_output': same})
+    line.update(_fill_turns(roots, order))
     emit(line, out)
     return []
 

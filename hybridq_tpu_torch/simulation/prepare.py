@@ -4,7 +4,9 @@ A copy of the token-state helpers of ``hybridq_tpu/simulation/prepare.py``:
 tokens '0', '1', '+', '-' build a product state of ``len(state)`` qubits,
 on the host (``prepare_state``) or straight into the engines' split
 container on the device (``token_container``, ``token_containers``
-for several devices).
+for several devices).  The device fill uploads only the ``(n, 2)`` table
+of token vectors and builds every amplitude on the device; ``counts()``
+reads its fills and uploaded bytes.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ['prepare_state', 'token_container', 'token_containers',
-           'pack_container', 'TOKEN_VECTORS']
+           'pack_container', 'TOKEN_VECTORS', 'counts', 'reset_counts']
 
 _SQRT2 = np.sqrt(2.0)
 
@@ -25,6 +27,21 @@ TOKEN_VECTORS = {
     '+': np.array([1.0, 1.0]) / _SQRT2,
     '-': np.array([1.0, -1.0]) / _SQRT2,
 }
+
+# Containers filled from a token string (one a device), and the bytes
+# copied from the host for them.
+token_fills = 0
+fill_upload_bytes = 0
+
+
+def reset_counts():
+    global token_fills, fill_upload_bytes
+    token_fills = fill_upload_bytes = 0
+
+
+def counts() -> dict:
+    return {'token_fills': token_fills,
+            'fill_upload_bytes': fill_upload_bytes}
 
 
 def _check_state(state, d) -> str:
@@ -64,35 +81,43 @@ def token_container(state: str, n: int, device,
     return token_containers(state, n, [device], dtype)[0]
 
 
+def _fold(vectors: torch.Tensor) -> torch.Tensor:
+    """The ``2^m`` amplitudes of the product of the ``(m, 2)`` token
+    ``vectors``, the first the most significant bit: the left fold of
+    ``np.multiply.outer``, one multiply of the same two values an
+    amplitude, so it is bitwise numpy's."""
+    a = torch.ones(1, dtype=vectors.dtype, device=vectors.device)
+    for v in vectors:
+        a = (a[:, None] * v[None, :]).reshape(-1)
+    return a
+
+
 def token_containers(state: str, n: int, devices,
                      dtype=torch.float32) -> list:
-    """``token_container`` on each of ``devices``: the row and lane
-    amplitudes are built once on the host, and each container is filled
-    on its own device from them, so that no container is copied between
-    devices."""
+    """``token_container`` on each of ``devices``: each device gets the
+    ``(n, 2)`` table of the tokens' vectors in ``dtype`` (``2 n`` floats,
+    the only bytes copied from the host), folds its row and lane
+    amplitudes from it and fills its own container, so that no container
+    or amplitude array is copied to or between devices."""
+    global token_fills, fill_upload_bytes
     state = _check_state(state, 2)
     if len(state) != n:
         raise ValueError("Wrong number of qubits for state.")
     lo = min(n, 7)
 
     ftype = {torch.float32: np.float32, torch.float64: np.float64}[dtype]
-
-    def amps(tokens):
-        a = np.array([1.0], dtype=ftype)
-        for s in tokens:
-            a = np.multiply.outer(
-                a, TOKEN_VECTORS[s].astype(ftype)).reshape(-1)
-        return a
-
-    row_h, lane_h = amps(state[:n - lo]), amps(state[n - lo:])
+    table_h = np.stack([TOKEN_VECTORS[s] for s in state]).astype(ftype)
     outs = []
     for device in devices:
-        row = torch.as_tensor(row_h, device=device)
-        lane = torch.as_tensor(lane_h, device=device)
-        out = torch.zeros(2 ** (n + 1), dtype=dtype, device=device)
+        table = torch.as_tensor(table_h, device=device)
+        row, lane = _fold(table[:n - lo]), _fold(table[n - lo:])
+        out = torch.empty(2 ** (n + 1), dtype=dtype, device=device)
         torch.mul(row[:, None], lane[None, :],
                   out=out[:2 ** n].view(2 ** (n - lo), 2 ** lo))
+        out[2 ** n:].zero_()
         outs.append(out)
+        token_fills += 1
+        fill_upload_bytes += table_h.nbytes
     return outs
 
 

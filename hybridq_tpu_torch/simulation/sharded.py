@@ -205,10 +205,11 @@ class ShardedEvolver:
 
     # -- state construction -----------------------------------------------
     def prepare_state(self, state: str):
-        """A token product state: the local tokens' amplitudes are built
-        once on the host, each device fills its own container from them
-        (nothing crosses between devices), then each shard is scaled by
-        its global tokens' amplitude."""
+        """A token product state: each device builds its own container
+        from the local tokens' vectors (``prepare.token_containers``; only
+        the ``(n_local, 2)`` table is copied from the host, nothing crosses
+        between devices), then each shard is scaled by its global tokens'
+        amplitude."""
         from hybridq_tpu_torch.simulation.prepare import token_containers
 
         state = _check_state(state, 2)

@@ -22,6 +22,7 @@ from hybridq_tpu_torch import Circuit, Gate
 from hybridq_tpu_torch.convert import circuit_from_matrices
 from hybridq_tpu_torch.probes import bw, fused_k4, gather
 from hybridq_tpu_torch.simulation import fused_kernels as fk
+from hybridq_tpu_torch.simulation import prepare
 from hybridq_tpu_torch.simulation import row_kernels as rk
 from hybridq_tpu_torch.simulation import simulate
 from hybridq_tpu_torch.simulation.kernels import IndexedEvolver
@@ -232,6 +233,20 @@ def test_cuda_indexed_evolver_matches_cpu(cuda):
                                    atol=ATOL)
     np.testing.assert_allclose(
         ev_c.gather_host(s_c, 'complex128', chunk=2 ** 10), want, atol=ATOL)
+
+
+@pytest.mark.parametrize('state', ['0' * 26, '-+01+1-0+-10-+01-1+0+-01+-'])
+def test_cuda_token_container_matches_cpu(state, cuda):
+    """The token fill at n = 26 on the card: bit for bit the container
+    built on the host, with only the token table uploaded."""
+    n = len(state)
+    prepare.reset_counts()
+    got = prepare.token_container(state, n, cuda)
+    counts = prepare.counts()
+    assert counts['token_fills'] == 1
+    assert counts['fill_upload_bytes'] <= 2 * n * 4
+    want = prepare.token_container(state, n, 'cpu')
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize('c', [3, 4])

@@ -214,13 +214,21 @@ def test_cell_schedules(seed_, simplify, compressed, launches):
 
 
 @pytest.mark.parametrize('tokens', ['0' * 15, '+' * 15,
-                                    ('01+-' * 4)[:15]])
+                                    ('01+-' * 4)[:15], '+-01+-0',
+                                    '1-+0-+10', '0' * 8 + '+-01-+1',
+                                    '+-01-+10' + '0' * 7])
 def test_prepare_state_matches_jax(tokens):
-    """The token product state, bit for bit the JAX fused engine's
-    container (both in canonical order)."""
+    """The token product state, bit for bit the JAX package's container
+    (both in canonical order): its fused engine's from 14 qubits, which
+    folds the row and the lane tokens apart as the port does; below, its
+    indexed engine's single fold, which equals the split one at n <= 8."""
     n = len(tokens)
     got = TIndexed(n, device='cpu').prepare_state(tokens)
-    want = JFused(n, interpret=True).prepare_state(tokens)
+    if n >= 14:
+        want = JFused(n, interpret=True).prepare_state(tokens)
+    else:
+        ev = JIndexed(n)
+        want = ev.unpack_host(ev.prepare_state(tokens))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).reshape(-1))
 
 
