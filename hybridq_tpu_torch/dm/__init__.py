@@ -5,7 +5,8 @@ simulation calls the port's ``simulate``)."""
 from hybridq_tpu_torch.dm.gate import (BaseSuperGate, MatrixSuperGate,
                                  KrausSuperGate, TupleSuperGate, Gate)
 from hybridq_tpu_torch.dm.circuit import Circuit
-from hybridq_tpu_torch.dm.simulation import simulate
+from hybridq_tpu_torch.dm.simulation import counts, reset_counts, simulate
 
 __all__ = ['BaseSuperGate', 'MatrixSuperGate', 'KrausSuperGate',
-           'TupleSuperGate', 'Gate', 'Circuit', 'simulate']
+           'TupleSuperGate', 'Gate', 'Circuit', 'simulate', 'counts',
+           'reset_counts']
