@@ -112,20 +112,29 @@ def isclose(a, b, use_matrix_commutation: bool = True,
 
 # Work of the insertion scan (``simplify``, ``pop*``, ``isclose``): gates
 # inserted, positions visited, and inverse or commutation tests that
-# reached numpy.
+# reached numpy.  Work of ``compress``: its commutation tests that reached
+# numpy; and of the engines that launch its blocks: blocks of more than one
+# gate launched with the matrix ``compress`` built, or with one they built.
 simplify_gates = 0
 scanned = 0
 matrix_tests = 0
+compress_tests = 0
+block_matrices_reused = 0
+block_matrices_built = 0
 
 
 def reset_counts():
-    global simplify_gates, scanned, matrix_tests
-    simplify_gates = scanned = matrix_tests = 0
+    global simplify_gates, scanned, matrix_tests, compress_tests
+    global block_matrices_reused, block_matrices_built
+    simplify_gates = scanned = matrix_tests = compress_tests = 0
+    block_matrices_reused = block_matrices_built = 0
 
 
 def counts() -> dict:
     return {'simplify_gates': simplify_gates, 'scanned': scanned,
-            'matrix_tests': matrix_tests}
+            'matrix_tests': matrix_tests, 'compress_tests': compress_tests,
+            'block_matrices_reused': block_matrices_reused,
+            'block_matrices_built': block_matrices_built}
 
 
 def _own_matrix(g, cache: dict) -> np.ndarray:
@@ -153,19 +162,26 @@ def _widen(M: np.ndarray, qubits: tuple, order: tuple) -> np.ndarray:
     return np.reshape(np.transpose(T, perm), (2**n, 2**n))
 
 
+def _commute(A, qa: tuple, B, qb: tuple, atol: float) -> bool:
+    """``commutes_with``'s test of the matrix ``A`` on ``qa`` against ``B``
+    on ``qb``: ``B·A`` against ``A·B`` on the union of their qubits, in
+    that argument order of ``np.allclose``.  The union starts with the
+    wider one's qubits, which then needs no widening."""
+    wide, narrow = (qb, qa) if len(qb) > len(qa) else (qa, qb)
+    order = wide + tuple(q for q in narrow if q not in wide)
+    A, B = _widen(A, qa, order), _widen(B, qb, order)
+    return np.allclose(B @ A, A @ B, atol=atol)
+
+
 def _commutes(gate, g, cache: dict, atol: float) -> bool:
-    """``gate.commutes_with(g, atol=atol)`` for gates that share a qubit:
-    ``g·gate`` against ``gate·g`` on the union of their qubits, from each
-    gate's matrix taken once per ``cache``."""
+    """``gate.commutes_with(g, atol=atol)`` for gates that share a qubit,
+    from each gate's matrix taken once per ``cache``."""
     global matrix_tests
     if not (isinstance(g, BaseGate) and g.provides('matrix,qubits')):
         return False
-    gq = g.qubits
-    order = gate.qubits + tuple(q for q in gq if q not in gate.qubits)
-    A = _widen(_own_matrix(gate, cache), gate.qubits, order)
-    B = _widen(_own_matrix(g, cache), gq, order)
     matrix_tests += 1
-    return np.allclose(B @ A, A @ B, atol=atol)
+    return _commute(_own_matrix(gate, cache), gate.qubits,
+                    _own_matrix(g, cache), g.qubits, atol)
 
 
 def _is_inverse(inv, inv_M, g, cache: dict, atol: float) -> bool:
@@ -293,8 +309,27 @@ def compress(circuit, max_n_qubits: int = 2, *, exclude_qubits=None,
     and merged into the deepest block whose qubit-union stays within the
     limit.
     """
+    return _compress(circuit, max_n_qubits, exclude_qubits=exclude_qubits,
+                     use_matrix_commutation=use_matrix_commutation,
+                     max_n_qubits_matrix=max_n_qubits_matrix,
+                     skip_compression=skip_compression,
+                     skip_commutation=skip_commutation, atol=atol)[0]
+
+
+def _compress(circuit, max_n_qubits: int = 2, *, exclude_qubits=None,
+              use_matrix_commutation: bool = True,
+              max_n_qubits_matrix: int = 10, skip_compression=None,
+              skip_commutation=None, atol: float = 1e-8):
+    """``compress``'s blocks and, for each, its complex128 matrix: ``(U,
+    qubits)`` on the block's sorted qubits, the product of its gates, or
+    ``None`` where there is none (matrix commutation off, a gate without a
+    matrix, or a block wider than ``max_n_qubits_matrix``).  Each gate's
+    matrix is taken once, and the commutation tests and merges work on
+    those arrays."""
+    global compress_tests
     if max_n_qubits <= 0:
-        return [Circuit([g]) for g in circuit]
+        blocks = [Circuit([g]) for g in circuit]
+        return blocks, [None] * len(blocks)
 
     skip_compression = tuple(skip_compression or ())
     skip_commutation = tuple(skip_commutation or ())
@@ -307,29 +342,28 @@ def compress(circuit, max_n_qubits: int = 2, *, exclude_qubits=None,
             return gate.name == x.upper() or gate.provides(x)
         raise ValueError(f"'{x}' not supported.")
 
-    def _as_matrix_gate(gates):
-        return to_matrix_gate(gates, complex_type='complex128',
-                              max_compress=0)
-
     circuit = Circuit(circuit)
-    # Each layer: [block_circuit, cached_matrix_gate_or_None, props]
+    # Each layer: [gates, qubits (None: a gate without qubits), matrix
+    # (U, sorted qubits) or None, props]
     layers = []
 
     for gate in circuit:
-        mgate = None
+        M = None
         props = dict(compress=True, commute=True)
         merge_to = len(layers)
 
         if not gate.provides('qubits') or gate.qubits is None:
+            q = None
             props['compress'] = props['commute'] = False
         else:
             q = set(gate.qubits)
-            try:
-                mgate = _as_matrix_gate([gate]) if (
-                    use_matrix_commutation and
-                    len(q) <= max_n_qubits_matrix) else None
-            except Exception:
-                mgate = None
+            if use_matrix_commutation and len(q) <= max_n_qubits_matrix:
+                try:
+                    order = tuple(sort(q))
+                    M = (_widen(np.asarray(gate.matrix(), dtype='complex128'),
+                                tuple(gate.qubits), order), order)
+                except Exception:
+                    M = None
 
             if any(_check_skip(gate, t) for t in skip_compression) or \
                     q & exclude_qubits:
@@ -338,10 +372,8 @@ def compress(circuit, max_n_qubits: int = 2, *, exclude_qubits=None,
                 props['commute'] = False
 
             for i in reversed(range(len(layers))):
-                block, block_gate, block_props = layers[i]
-                try:
-                    cq = set(block.all_qubits)
-                except Exception:
+                _, cq, block_M, block_props = layers[i]
+                if cq is None:
                     break
                 if props['compress'] and block_props['compress']:
                     if len(q | cq) <= max(max_n_qubits, len(cq), len(q)):
@@ -350,31 +382,48 @@ def compress(circuit, max_n_qubits: int = 2, *, exclude_qubits=None,
                         block_props['commute']:
                     if not q & cq:
                         continue
-                    try:
-                        if mgate.commutes_with(block_gate, atol=atol):
+                    if M is not None and block_M is not None:
+                        compress_tests += 1
+                        if _commute(*M, *block_M, atol):
                             continue
-                    except Exception:
-                        pass
                 break
 
         if merge_to < len(layers):
             layer = layers[merge_to]
             layer[0].append(gate)
-            try:
-                if use_matrix_commutation and len(
-                        set(mgate.qubits) |
-                        set(layer[1].qubits)) <= max_n_qubits_matrix:
-                    layer[1] = _as_matrix_gate([layer[1], mgate])
-                else:
-                    layer[1] = None
-            except Exception:
-                layer[1] = None
+            layer[1] |= q
+            block_M = layer[2]
+            layer[2] = None
+            if use_matrix_commutation and M is not None and \
+                    block_M is not None and \
+                    len(layer[1]) <= max_n_qubits_matrix:
+                # the gate after the block
+                order = tuple(sort(layer[1]))
+                layer[2] = (_widen(*M, order) @ _widen(*block_M, order),
+                            order)
             for k in ('compress', 'commute'):
-                layer[2][k] &= props[k]
+                layer[3][k] &= props[k]
         else:
-            layers.append([Circuit([gate]), mgate, props])
+            layers.append([[gate], q, M, props])
 
-    return [c for c, _, _ in layers]
+    return [Circuit(gates) for gates, _, _, _ in layers], \
+        [M for _, _, M, _ in layers]
+
+
+def _block_gate(block, matrix, complex_type):
+    """The gate that launches a block of ``_compress``: its one gate, else
+    a MatrixGate of ``matrix``, the block's matrix from ``_compress``,
+    rounded once to ``complex_type``; where that is ``None``,
+    ``to_matrix_gate``'s."""
+    global block_matrices_reused, block_matrices_built
+    if len(block) == 1:
+        return block[0]
+    if matrix is None:
+        block_matrices_built += 1
+        return to_matrix_gate(block, complex_type=complex_type)
+    block_matrices_reused += 1
+    U, qubits = matrix
+    return Gate('MATRIX', qubits=qubits, U=U.astype(complex_type))
 
 
 def simplify(circuit, atol: float = 1e-8,

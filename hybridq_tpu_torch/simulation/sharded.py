@@ -338,18 +338,16 @@ class ShardedEvolver:
         if not (self.compress and self.compress > 1):
             return list(circuit)
         with span('hq.compress'):
-            blocks = circuit_utils.compress(
+            blocks, matrices = circuit_utils._compress(
                 circuit, min(self.compress, self.n_local),
                 skip_compression=skip)
             gates = []
-            for b in blocks:
+            for b, M in zip(blocks, matrices):
                 if any(isinstance(gg, FunctionalGate) for gg in b):
                     gates.extend(b)
-                elif len(b) > 1:
-                    gates.append(circuit_utils.to_matrix_gate(
-                        b, complex_type=self.complex_type))
                 else:
-                    gates.append(b[0])
+                    gates.append(circuit_utils._block_gate(
+                        b, M, self.complex_type))
         return gates
 
     def _qubit_index(self, circuit, qubits):

@@ -189,22 +189,25 @@ def simulate(circuit, initial_state=None, final_state=None,
                                    sub, complex_type, device, **kwargs)
 
 
-def _segment_blocks(blocks):
+def _segment_blocks(blocks, matrices):
     """Group compressed blocks into maximal runs of matrix gates, keeping
-    FunctionalGates as singleton separators."""
-    segments = []  # list of ('mat', [gates]) | ('fun', gate)
-    current = []
-    for block in blocks:
+    FunctionalGates as singleton separators; ``matrices`` are the blocks'
+    from ``utils._compress``."""
+    # list of ('mat', [blocks], [matrices]) | ('fun', gate, None)
+    segments = []
+    current, mats = [], []
+    for block, M in zip(blocks, matrices):
         if any(isinstance(g, FunctionalGate) for g in block):
             assert len(block) == 1
             if current:
-                segments.append(('mat', current))
-                current = []
-            segments.append(('fun', block[0]))
+                segments.append(('mat', current, mats))
+                current, mats = [], []
+            segments.append(('fun', block[0], None))
         else:
             current.append(block)
+            mats.append(M)
     if current:
-        segments.append(('mat', current))
+        segments.append(('mat', current, mats))
     return segments
 
 
@@ -246,17 +249,17 @@ def _simulate_evolution(circuit, qubits, initial_state, final_state, sub,
                     if k != 'max_n_qubits'}
                    if isinstance(compress_opt, dict) else {})
     with span('hq.compress'):
-        blocks = utils.compress(circuit, max_k,
-                                skip_compression=[FunctionalGate],
-                                **compress_kw)
+        blocks, matrices = utils._compress(circuit, max_k,
+                                           skip_compression=[FunctionalGate],
+                                           **compress_kw)
 
     engine = _engine(sub, n_qubits, complex_type, device, kwargs)
     info['engine'] = engine
     evolve = {'indexed': _evolve_indexed, 'torch': _evolve_torch,
               'einsum': _evolve_einsum}[engine]
     t0 = _time_mod.time()
-    psi = evolve(blocks, qubits, qubit_index, initial_state, complex_type,
-                 device, kwargs)
+    psi = evolve(blocks, matrices, qubits, qubit_index, initial_state,
+                 complex_type, device, kwargs)
     if kwargs['block_until_ready'] and device.type == 'cuda':
         with span('hq.sync'):
             torch.cuda.synchronize(device)
@@ -340,8 +343,8 @@ def _host_round_trip(payload, psi, qubits):
     return new_psi
 
 
-def _evolve_torch(blocks, qubits, qubit_index, initial_state, complex_type,
-                  device, kwargs):
+def _evolve_torch(blocks, matrices, qubits, qubit_index, initial_state,
+                  complex_type, device, kwargs):
     """Per-gate evolution on a complex ``(2,)*n`` tensor; FunctionalGates
     (measure / projection / message) run on the host between runs of
     matrix blocks."""
@@ -353,10 +356,10 @@ def _evolve_torch(blocks, qubits, qubit_index, initial_state, complex_type,
                                       complex_type=complex_type)
     psi = torch.as_tensor(np.asarray(initial_state, dtype=complex_type),
                           device=device)
-    for kind, payload in _segment_blocks(blocks):
+    for kind, payload, mats in _segment_blocks(blocks, matrices):
         if kind == 'mat':
-            gates = [utils.to_matrix_gate(b, complex_type=complex_type)
-                     if len(b) > 1 else b[0] for b in payload]
+            gates = [utils._block_gate(b, M, complex_type)
+                     for b, M in zip(payload, mats)]
             psi = evolve_statevector(psi, gates, qubit_index)
         else:
             psi = torch.as_tensor(
@@ -365,7 +368,7 @@ def _evolve_torch(blocks, qubits, qubit_index, initial_state, complex_type,
     return psi
 
 
-def _evolve_einsum(blocks, qubits, qubit_index, initial_state,
+def _evolve_einsum(blocks, matrices, qubits, qubit_index, initial_state,
                    complex_type, device, kwargs):
     """``'evolution-einsum[-<opt>]'``: one ``torch.einsum`` a compressed
     block on a complex ``(2,)*n`` tensor, with subscripts built by hand
@@ -380,9 +383,8 @@ def _evolve_einsum(blocks, qubits, qubit_index, initial_state,
 
     n = len(qubits)
     segments = [(kind, payload if kind == 'fun' else [
-        utils.to_matrix_gate(b, complex_type=complex_type)
-        if len(b) > 1 else b[0] for b in payload])
-        for kind, payload in _segment_blocks(blocks)]
+        utils._block_gate(b, M, complex_type) for b, M in zip(payload, mats)])
+        for kind, payload, mats in _segment_blocks(blocks, matrices)]
     k = max((len(g.qubits) for kind, gates in segments if kind == 'mat'
              for g in gates), default=0)
     if n + k > 52:
@@ -417,20 +419,20 @@ def _evolve_einsum(blocks, qubits, qubit_index, initial_state,
     return psi
 
 
-def _block_items(payload, complex_type, qubit_index):
-    """``[(U, dense qubit indices), ...]`` of a run of compressed
-    blocks."""
+def _block_items(payload, complex_type, qubit_index, matrices=None):
+    """``[(U, dense qubit indices), ...]`` of a run of compressed blocks
+    and their ``matrices`` from ``utils._compress`` (``None``: build
+    each)."""
     items = []
     with span('hq.block_matrices'):
-        for b in payload:
-            g = utils.to_matrix_gate(b, complex_type=complex_type) \
-                if len(b) > 1 else b[0]
+        for b, M in zip(payload, matrices or [None] * len(payload)):
+            g = utils._block_gate(b, M, complex_type)
             items.append((np.ascontiguousarray(g.matrix()),
                           tuple(qubit_index[q] for q in g.qubits)))
     return items
 
 
-def _evolve_indexed(blocks, qubits, qubit_index, initial_state,
+def _evolve_indexed(blocks, matrices, qubits, qubit_index, initial_state,
                     complex_type, device, kwargs):
     """Straight engine (``kernels.IndexedEvolver``): blocks paired by
     ``pair_matrix_gates``, one ``apply_bits`` launch each, the state in
@@ -451,9 +453,9 @@ def _evolve_indexed(blocks, qubits, qubit_index, initial_state,
             state = ev.pack(np.asarray(initial_state))
     del initial_state
 
-    for kind, payload in _segment_blocks(blocks):
+    for kind, payload, mats in _segment_blocks(blocks, matrices):
         if kind == 'mat':
-            items = _block_items(payload, complex_type, qubit_index)
+            items = _block_items(payload, complex_type, qubit_index, mats)
             with span('hq.pair'):
                 items = pair_matrix_gates(items, n_qubits)
             # one stacked upload per block size, then one launch a block

@@ -223,4 +223,6 @@ def test_counters_show_the_scan_engaged():
     assert n['matrix_tests'] <= 4 * len(c)
     tutils.reset_counts()
     assert tutils.counts() == {'simplify_gates': 0, 'scanned': 0,
-                               'matrix_tests': 0}
+                               'matrix_tests': 0, 'compress_tests': 0,
+                               'block_matrices_reused': 0,
+                               'block_matrices_built': 0}
